@@ -1,0 +1,107 @@
+"""Public wrappers around the Hopper attention kernels.
+
+Each wrapper keeps the reference package's signature and (B, S, H, D)
+layout (``repro/kernels/ops.py``) and dispatches by the device of the
+tensors it is given: on the CPU it runs the plain version in
+``kernels/ref.py``; on a CUDA device it launches the kernel, and raises if
+the kernel does not take the inputs or fails to launch.  There is no
+switch and no fallback.  ``LAUNCHES`` counts the kernel launches, so a run
+can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_cuda(q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError("q, k and v must be on one device")
+        if t.dtype != q.dtype:
+            raise ValueError(f"dtype mismatch: {t.dtype} vs {q.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the kernel takes contiguous, 16-byte aligned "
+                             "tensors")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernel takes f32 or bf16, got {q.dtype}")
+    D, Hq, Hkv = q.shape[-1], q.shape[-2], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+
+
+def _int32(x: torch.Tensor, device) -> torch.Tensor:
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed to launch (error {err})")
+
+
+def prefill_attention(q, k, v, offset, lengths, window: int = 0,
+                      softcap: float = 0.0, scale: Optional[float] = None):
+    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) chunked/whole prefill attention."""
+    if q.device.type == "cpu":
+        return ref.chunked_prefill_attention_ref(
+            q, k, v, offset, lengths, window=window, softcap=softcap,
+            scale=scale)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    _check_cuda(q, k, v)
+    scale = scale if scale is not None else D ** -0.5
+    offset, lengths = _int32(offset, q.device), _int32(lengths, q.device)
+    out = torch.empty_like(q)
+    fn = build.lib("chunked_prefill_attention").chunked_prefill_attention
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             offset.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             B, Sq, Skv, Hq, Hkv, D, int(window), float(softcap),
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "chunked_prefill_attention")
+    LAUNCHES["chunked_prefill_attention"] += 1
+    return out
+
+
+def decode_attention_op(q, k, v, cur_lens, window: int = 0,
+                        softcap: float = 0.0, scale: Optional[float] = None):
+    """(B,Hq,D) single-token decode against a (B,L,Hkv,D) cache."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, cur_lens, window=window,
+                                        softcap=softcap, scale=scale)
+    B, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, L, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    _check_cuda(q, k, v)
+    scale = scale if scale is not None else D ** -0.5
+    cur_lens = _int32(cur_lens, q.device)
+    out = torch.empty_like(q)
+    fn = build.lib("decode_attention").decode_attention
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             cur_lens.data_ptr(), out.data_ptr(), B, L, Hq, Hkv, D,
+             int(window), float(softcap), float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out

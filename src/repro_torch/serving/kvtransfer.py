@@ -1,0 +1,79 @@
+"""KV-cache transfer between PD instances.
+
+The counterpart of the reference package's ``serving/kvtransfer.py``, with
+the same interface:
+
+    payload = extract(cfg, state, length)      # prefiller side
+    nbytes  = payload_bytes(payload)           # what would cross the wire
+    state   = insert(cfg, pool_state, payload, slot)   # decoder side
+
+``extract`` copies the request's slot and trims each cache to the request's
+length rounded up to 128 tokens (at least 8), so ``payload_bytes`` is the
+reference's for the same config and length; it is the measured source of
+the network-stage Token Velocity.  Instances share one process and one
+device, so the "wire" is a device-to-device copy.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass
+class KVPayload:
+    """One request's transferable state (batch-1, length-trimmed)."""
+    tree: list              # per-layer {"k", "v"} tensors (1, n, Hkv, D)
+    length: int
+
+
+def extract(cfg: ModelConfig, state, length: int, slot: int = 0) -> KVPayload:
+    """Copy slot `slot` out of a pooled state, trimming the caches to
+    `length` tokens (rounded up to 128)."""
+    n = max(int(math.ceil(length / 128.0)) * 128, 8)
+    tree = [{key: leaf[slot:slot + 1, :min(n, leaf.shape[1])].clone()
+             for key, leaf in layer.items()}
+            for layer in state]
+    return KVPayload(tree=tree, length=length)
+
+
+def insert(cfg: ModelConfig, pool_state, payload: KVPayload, slot: int):
+    """Write a payload into slot `slot` of a decoder's pooled state, in
+    place; cache rows past the payload are zeroed, as the reference's
+    re-padding does."""
+    for pool_layer, one_layer in zip(pool_state, payload.tree):
+        for key, leaf in pool_layer.items():
+            one = one_layer[key][0]
+            n = one.shape[0]
+            leaf[slot, :n].copy_(one)
+            leaf[slot, n:].zero_()
+    return pool_state
+
+
+def payload_bytes(payload: KVPayload) -> int:
+    return int(sum(t.numel() * t.element_size()
+                   for layer in payload.tree for t in layer.values()))
+
+
+@dataclass
+class TransferStats:
+    """Ledger of prefiller->decoder transfers (drives measured V_N)."""
+    n_transfers: int = 0
+    total_bytes: int = 0
+    total_tokens: int = 0
+    total_wall_s: float = 0.0
+
+    def record(self, nbytes: int, tokens: int, wall_s: float):
+        self.n_transfers += 1
+        self.total_bytes += nbytes
+        self.total_tokens += tokens
+        self.total_wall_s += wall_s
+
+    def bytes_per_token(self) -> float:
+        return self.total_bytes / max(self.total_tokens, 1)
+
+    def measured_network_velocity(self, link_bw: float) -> float:
+        """tok/s the link could sustain at the observed bytes/token."""
+        return link_bw / max(self.bytes_per_token(), 1e-9)
+
