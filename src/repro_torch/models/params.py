@@ -156,7 +156,7 @@ def _from_numpy(a) -> torch.Tensor:
 
 
 @torch.no_grad()
-def from_jax_params(cfg: ModelConfig, tree, device="cpu") -> Transformer:
+def from_jax_params(cfg: ModelConfig, tree, device="cuda") -> Transformer:
     """The reference package's ``init_params`` tree, with numpy arrays as
     leaves, as a port model.  The stacked leading ``num_blocks`` dim of
     ``tree["blocks"]`` is split into per-layer modules."""

@@ -84,7 +84,9 @@ def prefill(cfg: ModelConfig, params: Transformer, state, tokens, lengths,
 
     `lengths` is the ABSOLUTE valid length (start + valid tokens in this
     chunk): chunked prefill passes consecutive windows with increasing
-    `start`.  Returns (last_token_logits (B,V), state)."""
+    `start`.  `plain_attention` runs the masked _sdpa in place of the
+    kernels, to hold the kernels' logits against it on the card.
+    Returns (last_token_logits (B,V), state)."""
     dev = params.device
     tokens = _tokens(tokens, dev)
     B, S = tokens.shape
@@ -101,15 +103,14 @@ def prefill(cfg: ModelConfig, params: Transformer, state, tokens, lengths,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, state, last_tokens,
-                cur_lens, plain_attention: bool = False):
+                cur_lens):
     """One autoregressive step against the cache.
 
     last_tokens: (B,) ints; cur_lens: (B,) tokens already cached (host).
     Returns (logits (B,V), state)."""
     dev = params.device
     tokens = _tokens(last_tokens, dev)[:, None]
-    ctx = _ctx("decode", _host_ints(cur_lens), 1, dev,
-               plain_attention=plain_attention)
+    ctx = _ctx("decode", _host_ints(cur_lens), 1, dev)
     x = _backbone(cfg, params, _embed(cfg, params, tokens), state, ctx)
     return _unembed(cfg, params, x)[:, 0], state
 

@@ -6,7 +6,9 @@ On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are the reference's: 2e-5 in f32, 3e-2 in bf16.
+Tolerances are the reference's: 2e-5 in f32, 3e-2 in bf16; at the
+main-path shapes bf16 is also held to 2e-5 + 2 bf16 steps of the plain
+value.
 """
 import numpy as np
 import pytest
@@ -60,6 +62,19 @@ def _close(out, want, tol):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _within_bf16_steps(out, want, steps=2):
+    """At the main-path shapes a typical output is ~0.04, as large as the
+    3e-2 tolerance.  Both sides round an f32 result to bf16: they may differ
+    by the f32 tolerance (order of the f32 arithmetic) plus one step of the
+    larger binade, so 2e-5 + 2 steps of |want|'s."""
+    torch.cuda.synchronize()
+    w = want.float()
+    _, e = torch.frexp(w)
+    bound = 2e-5 + steps * torch.ldexp(torch.ones_like(w), e - 8)
+    share = ((out.float() - w).abs() / bound).max().item()
+    assert share <= 1, f"{share} of the bound"
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,window,cap", SWEEP)
 def test_prefill_kernel_f32(cuda, B, Sq, Skv, Hq, Hkv, D, window, cap):
     g = torch.Generator(device=cuda).manual_seed(B * 100 + Sq)
@@ -74,17 +89,33 @@ def test_prefill_kernel_f32(cuda, B, Sq, Skv, Hq, Hkv, D, window, cap):
     _close(out, want, 2e-5)
 
 
-@pytest.mark.parametrize("Sq,off,lens", [(512, 0, 512), (256, 768, 1024)])
-def test_prefill_kernel_bf16_main_path(cuda, Sq, off, lens):
-    """Llama-3.1-8B heads in bf16: a whole prompt, a convertible chunk."""
+MAIN_PATH_PREFILL = [(512, 0, 512), (256, 768, 1024), (2048, 0, 1500)]
+
+
+def _main_path_prefill(cuda, Sq, off, lens, dtype):
     g = torch.Generator(device=cuda).manual_seed(Sq)
-    q = _randn(g, 1, Sq, 32, 128, dtype=torch.bfloat16)
-    k = _randn(g, 1, 2048, 8, 128, dtype=torch.bfloat16)
-    v = _randn(g, 1, 2048, 8, 128, dtype=torch.bfloat16)
+    q = _randn(g, 1, Sq, 32, 128, dtype=dtype)
+    k = _randn(g, 1, 2048, 8, 128, dtype=dtype)
+    v = _randn(g, 1, 2048, 8, 128, dtype=dtype)
     o = torch.tensor([off], device=cuda)
     n = torch.tensor([lens], device=cuda)
-    _close(kops.prefill_attention(q, k, v, o, n),
-           ref.chunked_prefill_attention_ref(q, k, v, o, n), 3e-2)
+    return (kops.prefill_attention(q, k, v, o, n),
+            ref.chunked_prefill_attention_ref(q, k, v, o, n))
+
+
+@pytest.mark.parametrize("Sq,off,lens", MAIN_PATH_PREFILL)
+def test_prefill_kernel_bf16_main_path(cuda, Sq, off, lens):
+    """Llama-3.1-8B heads in bf16: a whole prompt, a convertible chunk, a
+    burst prompt padded to the cache length."""
+    out, want = _main_path_prefill(cuda, Sq, off, lens, torch.bfloat16)
+    _close(out, want, 3e-2)
+    _within_bf16_steps(out, want)
+
+
+@pytest.mark.parametrize("Sq,off,lens", MAIN_PATH_PREFILL)
+def test_prefill_kernel_f32_main_path(cuda, Sq, off, lens):
+    out, want = _main_path_prefill(cuda, Sq, off, lens, torch.float32)
+    _close(out, want, 2e-5)
 
 
 def test_prefill_kernel_row_without_visible_key(cuda):
@@ -108,14 +139,25 @@ def test_decode_kernel_f32(cuda, B, L, Hq, Hkv, D, window, cap):
            2e-5)
 
 
-def test_decode_kernel_bf16_main_path(cuda):
+def _main_path_decode(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
-    q = _randn(g, 4, 32, 128, dtype=torch.bfloat16)
-    k = _randn(g, 4, 2048, 8, 128, dtype=torch.bfloat16)
-    v = _randn(g, 4, 2048, 8, 128, dtype=torch.bfloat16)
+    q = _randn(g, 4, 32, 128, dtype=dtype)
+    k = _randn(g, 4, 2048, 8, 128, dtype=dtype)
+    v = _randn(g, 4, 2048, 8, 128, dtype=dtype)
     cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
-    _close(kops.decode_attention_op(q, k, v, cur),
-           ref.decode_attention_ref(q, k, v, cur), 3e-2)
+    return (kops.decode_attention_op(q, k, v, cur),
+            ref.decode_attention_ref(q, k, v, cur))
+
+
+def test_decode_kernel_bf16_main_path(cuda):
+    out, want = _main_path_decode(cuda, torch.bfloat16)
+    _close(out, want, 3e-2)
+    _within_bf16_steps(out, want)
+
+
+def test_decode_kernel_f32_main_path(cuda):
+    out, want = _main_path_decode(cuda, torch.float32)
+    _close(out, want, 2e-5)
 
 
 def test_decode_kernel_never_reads_dead_region(cuda):

@@ -33,7 +33,8 @@ def setup():
     jcfg = jget_config("llama31_8b", smoke=True)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
     cfg = get_config("llama31_8b", smoke=True)
-    model = tm.from_jax_params(cfg, jax.tree.map(np.asarray, jparams))
+    model = tm.from_jax_params(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=(L,)).astype(np.int32)
                for L in PROMPT_LENS]
