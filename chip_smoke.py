@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA H100.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure exits non-zero; nothing is skipped):
-  1. build   — compile both CUDA kernels from src/repro_torch/kernels/csrc
+  1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
   2. parity  — each kernel against its plain PyTorch version on the card:
-               Llama-3.1-8B heads at the main-path shapes in bf16 (3e-2,
-               and 2e-5 + 2 bf16 steps of the plain value) and f32 (2e-5), the
-               f32 sweeps (2e-5), NaN in the decode kernel's dead region;
-               then times at the
-               main-path shapes beside the bound, the plain version and
-               torch's scaled_dot_product_attention (a yardstick only)
+               attention at Llama-3.1-8B heads at the main-path shapes in
+               bf16 (3e-2, and 2e-5 + 2 bf16 steps of the plain value) and
+               f32 (2e-5), the f32 sweeps (2e-5), NaN in the decode kernel's
+               dead region; the paged kernel on the reference's cases (f32,
+               2e-5), on interleaved pages at Llama heads (bf16 and f32, and
+               against the contiguous decode kernel on the gathered KV) and
+               under NaN in foreign pages; WKV6 (f32, 2e-4) on the
+               reference's sweep, the state carry and RWKV-6 3B heads with
+               model-like decays.  Then times at the main-path shapes beside
+               the bound, the plain version and, where one torch call
+               computes the same function, that call (a yardstick only)
   3. serve   — Llama-3.1-8B at its published widths (random weights from a
                seed, bf16) served PD-disaggregated by PDCluster (prefiller,
                decoder, convertible decoder), then a convertible Engine
-               with prompts longer than its chunk; the kernels' launch
-               counters are read around exactly this phase
-  4. exact   — the f32 SMOKE config served by PDCluster gives the same
-               tokens as greedy generation on the card
+               with prompts longer than its chunk; the attention kernels'
+               launch counters are read around exactly this phase
+  4. paged   — a PagedKV pool of Llama-3.1-8B's 32 layers of KV heads:
+               four requests allocated page by page in turn, written, and
+               attended through the paged kernel (its counter is read
+               around this phase) against the contiguous decode kernel
+  5. rwkv    — RWKV-6 3B at its published widths and depth (bf16, seed 0)
+               served by the same PD traffic; the WKV6 counter is read
+               around exactly this phase; every transfer ships the whole
+               recurrent state, 21,299,200 B, whatever the prompt length
+  6. exact   — the f32 SMOKE configs (Llama, RWKV-6) served by PDCluster
+               give the same tokens as greedy generation on the card
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -43,6 +56,17 @@ PEAK_BYTES = 3.35e12                     # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16, FLOP/s
             torch.float32: 67e12}        # f32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+WKV_TOL = 2e-4                           # tests/test_kernels.py's WKV6 rule
+WKV_SWEEP = [                            # tests/test_kernels.py's wkv6 cases
+    (1, 16, 1, 8, 16), (2, 37, 2, 16, 16), (1, 64, 4, 32, 32),
+    (2, 16, 2, 64, 8),
+]
+PAGED_CASES = [                          # tests/test_paged_and_sampling.py
+    (1, 2, 4, 16, 2, 1, 16), (3, 4, 12, 16, 4, 2, 32),
+    (2, 3, 8, 32, 8, 8, 64),
+]
+DECODE_CUR = [0, 700, 1500, 2047]        # the decode rows' cache lengths
+PAYLOAD_RWKV = 21_299_200                # 32 x (40*64*64*4 + 2*2560*2) B
 PREFILL_SWEEP = [                        # tests/test_kernels.py SWEEP + G=5
     (1, 8, 8, 1, 1, 16, 0, 0.0), (2, 24, 40, 4, 2, 64, 0, 0.0),
     (2, 24, 40, 4, 2, 64, 16, 0.0), (2, 24, 40, 4, 2, 64, 0, 30.0),
@@ -107,6 +131,16 @@ def decode_bound(q, k, cur, window):
     return _bound(ops, nbytes, q.dtype)
 
 
+def wkv6_bound(B, S, H, K, C):
+    """Each of r, k, v, w read once and y written once (f32), u, s0 read
+    and sT written once; the chunked algorithm's flops over the f32 peak:
+    per chunk and head, 4 C K^2 (inter-chunk y, state carry) + 4 C^2 K
+    (intra-chunk scores and y)."""
+    nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+    ops = B * H * math.ceil(S / C) * (4 * C * K * K + 4 * C * C * K)
+    return _bound(ops, nbytes, torch.float32)
+
+
 def _bound(ops, nbytes, dtype):
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -165,7 +199,8 @@ def phase_build():
     from repro_torch.kernels import build
     t = time.perf_counter()
     build.build_all()
-    log(f"[build] both kernels built in {time.perf_counter() - t:.1f} s")
+    log(f"[build] all {len(build.SOURCES)} kernels built in "
+        f"{time.perf_counter() - t:.1f} s")
     for name in build.SOURCES:
         regs = [ln.strip() for ln in build.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and " 0 bytes" not in ln]
@@ -333,29 +368,215 @@ def phase_parity():
             q, k, v, attn_mask=m, enable_gqa=True), sdpa_d),
         bound=decode_bound(dsets[0][0], dsets[0][1], curs.tolist(), 0),
         shape="B=4 L=2048 Hq=32 Hkv=8 D=128 bf16, cur_lens 0/700/1500/2047")
+    errs["paged_decode_attention"], rows["paged_decode_attention"] = \
+        parity_paged(g)
+    errs["wkv6"], rows["wkv6"] = parity_wkv6(g)
     for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms; "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); plain "
-            f"{r['plain_ms']:.4f} ms; sdpa {r['library_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f} ms; library {lib}")
     return errs, rows
 
 
-def phase_serve():
-    from repro_torch.configs import get_config
+def interleaved_tables(lens, n_blocks, max_blocks):
+    """Block tables for requests of `lens` tokens from a BlockAllocator
+    that hands one page to each request in turn: no request's pages are
+    contiguous."""
+    from repro_torch.serving.paged import BLOCK_SIZE, BlockAllocator
+    al = BlockAllocator(n_blocks)
+    need = [-(-n // BLOCK_SIZE) for n in lens]
+    tables = np.full((len(lens), max_blocks), -1, np.int32)
+    for i in range(max(need)):
+        for b, n in enumerate(need):
+            if i < n:
+                tables[b, i] = al.alloc(b)
+    return tables
+
+
+def parity_paged(g):
+    """The paged kernel against its plain version: the reference's cases
+    (f32), Llama-3.1-8B heads over interleaved 128-token pages (bf16, f32),
+    the contiguous decode kernel on the same KV gathered, NaN in foreign
+    pages; then its time at the decode rows' shape, with SDPA on the
+    gathered KV as the yardstick (the gather is not timed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
+    ok, worst = True, 0.0
+    for B, MB, NB, BS, Hq, Hkv, D in PAGED_CASES:
+        pk, pv = _rand(g, (NB, BS, Hkv, D), f32), _rand(g, (NB, BS, Hkv, D), f32)
+        perm = torch.randperm(NB, generator=g, device=dev)
+        tables = torch.full((B, MB), -1, dtype=torch.int32, device=dev)
+        curs, j = [], 0
+        for b in range(B):
+            n = int(torch.randint(1, MB + 1, (1,), generator=g, device=dev))
+            tables[b, :n] = perm[j:j + n]
+            j += n
+            curs.append(int(torch.randint(0, n * BS, (1,), generator=g,
+                                          device=dev)))
+        cur = torch.tensor(curs, device=dev)
+        q = _rand(g, (B, Hq, D), f32)
+        out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+        want = ref.paged_decode_attention_ref(q, pk, pv, tables, cur)
+        worst = max(worst, max_err(out, want))
+        ok &= close(out, want, TOL[f32])
+    log(f"[parity] paged f32 reference cases ({len(PAGED_CASES)}): "
+        f"max_abs_err {worst:.3g} (tol {TOL[f32]}) {'ok' if ok else 'FAIL'}")
+
+    cur = torch.tensor(DECODE_CUR, device=dev)
+    tables = torch.as_tensor(interleaved_tables([c + 1 for c in DECODE_CUR],
+                                                40, 16), device=dev)
+    safe = tables.clamp(min=0).long()
+    err = 0.0
+    for dt in (bf, f32):
+        q = _rand(g, (4, 32, 128), dt)
+        pk, pv = _rand(g, (40, 128, 8, 128), dt), _rand(g, (40, 128, 8, 128), dt)
+        out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+        want = ref.paged_decode_attention_ref(q, pk, pv, tables, cur)
+        contiguous = kops.decode_attention_op(
+            q, pk[safe].reshape(4, -1, 8, 128),
+            pv[safe].reshape(4, -1, 8, 128), cur)
+        for label, w in (("plain", want), ("contiguous decode kernel",
+                                           contiguous)):
+            e, good = max_err(out, w), close(out, w, TOL[dt])
+            note = f"max_abs_err {e:.3g} (tol {TOL[dt]})"
+            if dt == bf:
+                share = bf16_bound_share(out, w)
+                good &= share <= 1
+                note += f"; {share:.3g} of the 2e-5 + 2 bf16 steps bound"
+                if label == "plain":
+                    err = e
+            ok &= good
+            log(f"[parity] paged {'bf16' if dt == bf else 'f32'} B=4 "
+                f"cur={DECODE_CUR} interleaved pages vs {label}: {note} "
+                f"{'ok' if good else 'FAIL'}")
+    clean = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    used = set(tables[tables >= 0].tolist())
+    foreign = [i for i in range(pk.shape[0]) if i not in used]
+    pk[foreign] = float("nan")
+    pv[foreign] = float("nan")
+    dirty = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    good = bool(torch.equal(clean, dirty))
+    ok &= good
+    log(f"[parity] paged NaN-poisoned foreign pages ({len(foreign)}): "
+        f"{'ok' if good else 'FAIL'}")
+    check(ok, "paged kernel parity failed")
+
+    sets, sdpa = [], []
+    mask = (torch.arange(16 * 128, device=dev)[None, :] <= cur[:, None])
+    for _ in range(n_copies(2 * 40 * 128 * 8 * 128 * 2)):
+        q = _rand(g, (4, 32, 128), bf)
+        pk, pv = _rand(g, (40, 128, 8, 128), bf), _rand(g, (40, 128, 8, 128), bf)
+        sets.append((q, pk, pv, tables, cur))
+        sdpa.append((q[:, :, None],
+                     pk[safe].reshape(4, -1, 8, 128).transpose(1, 2),
+                     pv[safe].reshape(4, -1, 8, 128).transpose(1, 2),
+                     mask[:, None, None]))
+    gathered = sdpa[0][1].transpose(1, 2)
+    return err, dict(
+        ms=time_ms(kops.paged_decode_attention, sets),
+        plain_ms=time_ms(ref.paged_decode_attention_ref, sets),
+        library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), sdpa),
+        bound=decode_bound(sets[0][0], gathered, DECODE_CUR, 0),
+        shape="B=4 Hq=32 Hkv=8 D=128 bf16, 128-token pages interleaved, "
+              "cur_lens 0/700/1500/2047")
+
+
+def _wkv_inputs(g, B, S, H, K, model_decay=False, s0_zero=False):
+    """r, k, v ~ N(0, 1); w in (0, 1): the reference test's
+    exp(-exp(N(-1, 0.5))), or with `model_decay` RWKV-6's initial w0
+    (-6 .. -1 across channels) plus N(0, 0.5); u ~ N(0, 1); s0 ~ N(0, 1)
+    or zero."""
+    r, k, v, z = (_rand(g, (B, S, H, K), torch.float32) for _ in range(4))
+    if model_decay:
+        w0 = -6.0 + 5.0 * torch.arange(H * K, device="cuda").reshape(H, K) \
+            / (H * K - 1)
+        w = torch.exp(-torch.exp(w0 + 0.5 * z))
+    else:
+        w = torch.exp(-torch.exp(0.5 * z - 1))
+    u = _rand(g, (H, K), torch.float32)
+    s0 = torch.zeros(B, H, K, K, device="cuda") if s0_zero \
+        else _rand(g, (B, H, K, K), torch.float32)
+    return r, k, v, w, u, s0
+
+
+def parity_wkv6(g):
+    """The WKV6 kernel against the plain chunked version beside it and the
+    sequential oracle, f32 at 2e-4: the reference's sweep, the state-carry
+    composition, RWKV-6 3B heads (H=40, K=64) with model-like decays: a
+    1024-token prompt from a zero state, a convertible chunk of 256 from a
+    carried state, a ragged 8-token tail.  Then its time at the prompt."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    ok, worst = True, 0.0
+
+    def judge(label, args, chunk=16):
+        nonlocal ok, worst
+        y, sT = kops.wkv6_op(*args, chunk=chunk)
+        r, k, v, w, u, s0 = args
+        oy, osT = ref.wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, w)),
+                               u, s0)
+        wants = (ref.wkv6_chunked(*args, chunk=chunk),
+                 (oy.transpose(1, 2), osT))
+        good = True
+        for want_y, want_s in wants:
+            good &= close(y, want_y, WKV_TOL) and close(sT, want_s, WKV_TOL)
+        e = max(max_err(y, wants[0][0]), max_err(sT, wants[0][1]))
+        worst = max(worst, e)
+        ok &= good
+        log(f"[parity] wkv6 {label}: max_abs_err {e:.3g} vs the plain "
+            f"chunked version, {max(max_err(y, oy.transpose(1, 2)), max_err(sT, osT)):.3g} "
+            f"vs the oracle (tol {WKV_TOL}) {'ok' if good else 'FAIL'}")
+        return y, sT
+
+    for B, S, H, K, chunk in WKV_SWEEP:
+        judge(f"B={B} S={S} H={H} K={K} chunk={chunk}",
+              _wkv_inputs(g, B, S, H, K), chunk)
+    r, k, v, w, u, s0 = _wkv_inputs(g, 1, 40, 2, 64)
+    y_full, sT_full = kops.wkv6_op(r, k, v, w, u, s0)
+    y1, s_mid = kops.wkv6_op(*(t[:, :24].contiguous() for t in (r, k, v, w)),
+                             u, s0)
+    y2, sT = kops.wkv6_op(*(t[:, 24:].contiguous() for t in (r, k, v, w)), u,
+                          s_mid)
+    good = close(torch.cat([y1, y2], 1), y_full, WKV_TOL) \
+        and close(sT, sT_full, WKV_TOL)
+    ok &= good
+    log(f"[parity] wkv6 state carry (24 + 16 tokens == 40): "
+        f"{'ok' if good else 'FAIL'}")
+    for label, S, s0_zero in (("prompt S=1024 from s0=0", 1024, True),
+                              ("convertible chunk S=256 from a carried s0",
+                               256, False),
+                              ("ragged tail S=8", 8, False)):
+        judge(f"H=40 K=64 model-like decays, {label}",
+              _wkv_inputs(g, 1, S, 40, 64, model_decay=True, s0_zero=s0_zero))
+    check(ok, "wkv6 kernel parity failed")
+
+    sets = [_wkv_inputs(g, 1, 1024, 40, 64, model_decay=True, s0_zero=True)
+            for _ in range(n_copies(5 * 1024 * 40 * 64 * 4))]
+    return worst, dict(
+        ms=time_ms(kops.wkv6_op, sets),
+        plain_ms=time_ms(ref.wkv6_chunked, sets),
+        library_ms=None,               # no single torch call computes WKV6
+        bound=wkv6_bound(1, 1024, 40, 64, 16),
+        shape="B=1 S=1024 H=40 K=64 f32, chunk 16")
+
+
+def drive_pd(cfg, model, tag):
+    """The main path's traffic, as a user sends it: PDCluster (1 prefiller,
+    1 decoder, 1 convertible; 4 slots, max_len 2048, chunk 256) takes a
+    trickle of 8 requests of 64-768 tokens, then a burst of 4 of 1024-1536,
+    32 new tokens each; then a convertible Engine takes 2 prompts of
+    600-1100.  The kernels' counters are zeroed just before and read just
+    after.  Returns the run's figures; prints them under `tag`."""
     from repro_torch.core import CHIPS, InstanceSpec, TokenScalePolicy, profile
     from repro_torch.kernels import ops as kops
-    from repro_torch.models import (count_params, init_params, init_state,
-                                    prefill)
     from repro_torch.serving import Engine, PDCluster, Request
 
-    cfg = get_config("llama31_8b")
-    t = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                        "cuda")
-    torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {count_params(model) / 1e9:.2f}B params "
-        f"({cfg.num_layers}L d={cfg.d_model}) made on the card in "
-        f"{time.perf_counter() - t:.1f} s")
     rng = np.random.RandomState(0)
     max_len, new = 2048, 32
 
@@ -402,52 +623,221 @@ def phase_serve():
     launches = dict(kops.LAUNCHES)
     # ... to here
     engines = [d.eng for d in cl.decoders + cl.convertibles] + [eng]
-    done = sum(len(r.output) == new for r in reqs + direct)
-    mixed = sum(e.mixed_steps for e in engines)
-    dec_steps = sum(e.decode_steps for e in engines)
-    dec_ms = 1e3 * sum(e.decode_wall_s for e in engines) / max(dec_steps, 1)
-    mix_ms = 1e3 * sum(e.mixed_wall_s for e in engines) / max(mixed, 1)
+    run = dict(
+        launches=launches, reqs=reqs, transfers=transfers, max_len=max_len,
+        done=sum(len(r.output) == new for r in reqs + direct),
+        n=len(reqs) + len(direct),
+        mixed=sum(e.mixed_steps for e in engines),
+        dec_steps=sum(e.decode_steps for e in engines))
+    dec_ms = 1e3 * sum(e.decode_wall_s for e in engines) / max(
+        run["dec_steps"], 1)
+    mix_ms = 1e3 * sum(e.mixed_wall_s for e in engines) / max(run["mixed"], 1)
     pre_tok = sum(p.tokens_done for p in cl.prefillers)
     pre_s = sum(p.wall_s for p in cl.prefillers)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] requests completed {done}/{len(reqs) + len(direct)} "
+    log(f"[{tag}] requests completed {run['done']}/{run['n']} "
         f"(PD cluster {pd_s:.1f} s, {len(cl.prefillers)} prefillers, "
         f"{len(cl.decoders)} decoders, {len(cl.convertibles)} convertible "
         f"at the end)")
-    log(f"[serve] prefiller: {pre_tok} tokens in {pre_s:.3f} s = "
+    log(f"[{tag}] prefiller: {pre_tok} tokens in {pre_s:.3f} s = "
         f"{pre_tok / max(pre_s, 1e-9):.0f} tok/s")
-    log(f"[serve] decode steps {dec_steps}, mean {dec_ms:.2f} ms; mixed steps "
-        f"{mixed}, mean {mix_ms:.2f} ms")
-    want_bytes = [131072 * min(max(-(-L // 128) * 128, 8), max_len)
-                  for _, L in transfers]
-    sent = [b for b, _ in transfers]
-    log(f"[serve] KV transfers {len(sent)}, {sum(sent)} bytes; each "
-        f"131072 B x rounded length: {sent == want_bytes}")
-    log(f"[serve] kernel launches {launches}; peak device memory "
+    log(f"[{tag}] decode steps {run['dec_steps']}, mean {dec_ms:.2f} ms; "
+        f"mixed steps {run['mixed']}, mean {mix_ms:.2f} ms")
+    log(f"[{tag}] kernel launches {launches}; peak device memory "
         f"{peak:.2f} GiB")
-    check(done == len(reqs) + len(direct), "not every request completed")
-    check(mixed > 0, "no mixed (convertible) step ran")
-    check(all(n > 0 for n in launches.values()), f"launches {launches}")
-    check(len(sent) > 0 and sent == want_bytes, "KV payload sizes")
-    del cl, eng, engines
-    profile_decode(cfg, model)
+    return run
 
-    # one prompt through the kernels and through the plain attention
-    p = reqs[3].prompt
-    toks = np.zeros((1, 1 << (len(p) - 1).bit_length()), np.int32)
-    toks[0, :len(p)] = p
-    a, _ = prefill(cfg, model, init_state(cfg, 1, max_len, "cuda"), toks,
-                   [len(p)])
-    b, _ = prefill(cfg, model, init_state(cfg, 1, max_len, "cuda"), toks,
-                   [len(p)], plain_attention=True)
+
+def last_logits(cfg, model, prompt, max_len, plain=False):
+    """One prompt's last-token logits, through the kernels or through their
+    plain versions."""
+    from repro_torch.models import init_state, prefill
+    toks = np.zeros((1, 1 << (len(prompt) - 1).bit_length()), np.int32)
+    toks[0, :len(prompt)] = prompt
+    out, _ = prefill(cfg, model, init_state(cfg, 1, max_len, "cuda"), toks,
+                     [len(prompt)], plain_kernels=plain)
+    return out
+
+
+def compare_logits(a, b, tag, what):
+    """Largest |a - b| as a share of the largest |b|; logs it with both
+    argmaxes.  Returns (share, same argmax, finite)."""
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
-    log(f"[serve] last-token logits, kernels vs plain attention (L={len(p)}):"
-        f" max abs diff {diff:.4g} of max |logit| {scale:.4g}; argmax "
-        f"{int(a.argmax())} vs {int(b.argmax())}")
-    check(bool(torch.isfinite(a).all()) and diff <= 0.05 * scale,
-          "kernel and plain logits disagree")
+    share = diff / max(scale, 1e-30)
+    log(f"[{tag}] last-token logits, {what}: max abs diff {diff:.4g} of max "
+        f"|logit| {scale:.4g} ({share:.3g}); argmax {int(a.argmax())} vs "
+        f"{int(b.argmax())}")
+    return share, int(a.argmax()) == int(b.argmax()), \
+        bool(torch.isfinite(a).all())
+
+
+def phase_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+
+    cfg = get_config("llama31_8b")
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {count_params(model) / 1e9:.2f}B params "
+        f"({cfg.num_layers}L d={cfg.d_model}) made on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    run = drive_pd(cfg, model, "serve")
+    launches = {n: run["launches"][n]
+                for n in ("chunked_prefill_attention", "decode_attention")}
+    want_bytes = [131072 * min(max(-(-L // 128) * 128, 8), run["max_len"])
+                  for _, L in run["transfers"]]
+    sent = [b for b, _ in run["transfers"]]
+    log(f"[serve] KV transfers {len(sent)}, {sum(sent)} bytes; each "
+        f"131072 B x rounded length: {sent == want_bytes}")
+    check(run["done"] == run["n"], "not every request completed")
+    check(run["mixed"] > 0, "no mixed (convertible) step ran")
+    check(all(n > 0 for n in launches.values()), f"launches {launches}")
+    check(len(sent) > 0 and sent == want_bytes, "KV payload sizes")
+    profile_decode(cfg, model)
+    p, L = run["reqs"][3].prompt, run["max_len"]
+    share, _, finite = compare_logits(
+        last_logits(cfg, model, p, L), last_logits(cfg, model, p, L, True),
+        "serve", f"kernels vs plain attention (L={len(p)})")
+    check(finite and share <= 0.05, "kernel and plain logits disagree")
     return launches
+
+
+def phase_paged():
+    """The paged pool's path, through its API: a PagedKV of Llama-3.1-8B's
+    32 layers of KV heads (bf16, 128-token pages); four requests of
+    1/701/1501/2048 tokens take pages in turn (so none is contiguous), are
+    written, and every layer's new token attends its pages through the
+    paged kernel.  The counter is zeroed just before and read just after;
+    each layer's result is then held against the contiguous decode kernel
+    on the same KV gathered, and the pages are released."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.paged import PagedKV
+
+    cfg = get_config("llama31_8b")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    nL, Hkv, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    lens = [c + 1 for c in DECODE_CUR]
+    kv = PagedKV(nL, num_blocks=48, num_slots=4, max_blocks_per_slot=16,
+                 n_kv_heads=Hkv, head_dim=D, dtype=torch.bfloat16,
+                 device="cuda")
+    new_k = [_rand(g, (nL, n, Hkv, D), torch.bfloat16) for n in lens]
+    new_v = [_rand(g, (nL, n, Hkv, D), torch.bfloat16) for n in lens]
+    q = _rand(g, (nL, 4, cfg.num_heads, D), torch.bfloat16)
+    cur = torch.tensor(DECODE_CUR, device="cuda")
+    kops.reset_launches()
+    # ---- the paged path: its counter runs from here ...
+    t0 = time.perf_counter()
+    for i in range(1, 17):                    # one page per request in turn
+        for slot, n in enumerate(lens):
+            kv.ensure_capacity(slot, rid=slot, n_tokens=min(n, 128 * i))
+    for slot in range(4):
+        kv.write_tokens(slot, new_k[slot], new_v[slot], start=0)
+    tables = torch.as_tensor(kv.tables, device="cuda")
+    outs = [kops.paged_decode_attention(q[l], kv.pool_k[l], kv.pool_v[l],
+                                        tables, cur) for l in range(nL)]
+    torch.cuda.synchronize()
+    launches = kops.LAUNCHES["paged_decode_attention"]
+    # ... to here
+    path_ms = 1e3 * (time.perf_counter() - t0)
+    safe = tables.clamp(min=0).long()
+    worst, share = 0.0, 0.0
+    for l, out in enumerate(outs):
+        want = kops.decode_attention_op(
+            q[l], kv.pool_k[l][safe].reshape(4, -1, Hkv, D),
+            kv.pool_v[l][safe].reshape(4, -1, Hkv, D), cur)
+        worst = max(worst, max_err(out, want))
+        share = max(share, bf16_bound_share(out, want))
+    scattered = all(not (np.diff(t[t >= 0]) == 1).all()
+                    for t in kv.tables if (t >= 0).sum() > 1)
+    log(f"[paged] {kv.alloc.num_blocks - kv.alloc.n_free} pages of "
+        f"{kv.alloc.num_blocks} for lengths {lens}; no multi-page request's "
+        f"pages contiguous: {scattered}")
+    log(f"[paged] {nL} layers through the paged kernel in {path_ms:.1f} ms "
+        f"(allocation and writes included), launches {launches}; vs the "
+        f"contiguous decode kernel: max_abs_err {worst:.3g} (tol "
+        f"{TOL[torch.bfloat16]}), {share:.3g} of the 2e-5 + 2 bf16 steps "
+        f"bound")
+    for slot in range(4):
+        kv.release(slot, rid=slot)
+    check(scattered, "the allocator gave a request contiguous pages")
+    check(launches == nL, f"paged launches {launches}")
+    check(worst <= TOL[torch.bfloat16] and share <= 1,
+          "paged path disagrees with the contiguous decode kernel")
+    check(kv.alloc.n_free == kv.alloc.num_blocks, "pages not released")
+    return launches
+
+
+def phase_rwkv():
+    """RWKV-6 3B at its published widths and depth, bf16, from seed 0, on
+    the main path's PD traffic.  Every transfer must carry the whole
+    recurrent state (21,299,200 B) whatever the prompt's length."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+
+    cfg = get_config("rwkv6_3b")
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    log(f"[rwkv] {cfg.name}: {count_params(model) / 1e9:.2f}B params "
+        f"({cfg.num_layers}L d={cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads) made on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    run = drive_pd(cfg, model, "rwkv")
+    sent = [b for b, _ in run["transfers"]]
+    lens = sorted(L for _, L in run["transfers"])
+    log(f"[rwkv] state transfers {len(sent)} for prompts of {lens[0]}.."
+        f"{lens[-1]} tokens, {sum(sent)} bytes; each {PAYLOAD_RWKV} B: "
+        f"{all(b == PAYLOAD_RWKV for b in sent)} (a Llama-3.1-8B prompt of "
+        f"1024 tokens ships {131072 * 1024} B)")
+    check(run["done"] == run["n"], "rwkv: not every request completed")
+    check(run["mixed"] > 0, "rwkv: no mixed (convertible) step ran")
+    check(run["launches"]["wkv6"] > 0, f"rwkv launches {run['launches']}")
+    check(len(sent) > 0 and all(b == PAYLOAD_RWKV for b in sent),
+          "rwkv payload sizes")
+    profile_decode(cfg, model)
+    check_rwkv_logits(cfg, model, run["reqs"][3].prompt, run["max_len"])
+    return run["launches"]["wkv6"]
+
+
+def check_rwkv_logits(cfg, model, prompt, max_len):
+    """One prompt's last-token logits through the WKV6 kernel and through
+    the plain chunked WKV6.  In bf16 the two differ where the f32 WKV
+    results round to different bf16 values, and 32 layers amplify that; the
+    plain version's own sensitivity is shown by running it in chunks of 8
+    instead of 16 (the same function, another f32 order).  Checks: finite,
+    the same argmax in bf16; then the same model converted in place to f32
+    (same weights, full width and depth), where the kernel must agree
+    within 1e-3 of the largest |logit|."""
+    from functools import partial
+
+    from repro_torch.models import ops as mops
+    what = f"L={len(prompt)}"
+    kern = last_logits(cfg, model, prompt, max_len)
+    plain = last_logits(cfg, model, prompt, max_len, plain=True)
+    _, same, finite = compare_logits(
+        kern, plain, "rwkv", f"{cfg.dtype}, WKV6 kernel vs plain ({what})")
+    plain16 = mops.rwkv_wkv_chunked
+    mops.rwkv_wkv_chunked = partial(plain16, chunk=8)
+    try:
+        plain8 = last_logits(cfg, model, prompt, max_len, plain=True)
+    finally:
+        mops.rwkv_wkv_chunked = plain16
+    compare_logits(plain8, plain, "rwkv",
+                   f"{cfg.dtype}, plain in chunks of 8 vs of 16 ({what})")
+    check(finite and same, "rwkv: bf16 kernel and plain logits disagree")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    model.float()
+    share, same, finite = compare_logits(
+        last_logits(cfg32, model, prompt, max_len),
+        last_logits(cfg32, model, prompt, max_len, plain=True), "rwkv",
+        f"f32 weights and activations, WKV6 kernel vs plain ({what})")
+    check(finite and same and share <= 1e-3,
+          "rwkv: f32 kernel and plain logits disagree")
 
 
 def profile_decode(cfg, model, ctx=1024, steps=8):
@@ -473,7 +863,7 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"attention": 0.0, "wkv6": 0.0, "matmul": 0.0, "other": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -483,6 +873,8 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
         n += 1
         if "decode_kernel" in name or "prefill_kernel" in name:
             kinds["attention"] += us
+        elif "wkv6_kernel" in name:
+            kinds["wkv6"] += us
         elif any(w in name for w in ("gemm", "gemv", "xmma", "nvjet",
                                      "cutlass", "matmul")):
             kinds["matmul"] += us
@@ -494,7 +886,7 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
             "recorded no device events)")
         return
     per = {k: round(v / steps / 1e3, 3) for k, v in kinds.items()}
-    log(f"[profile] decode step at B=4, ctx~{ctx}: wall "
+    log(f"[profile] {cfg.name} decode step at B=4, ctx~{ctx}: wall "
         f"{wall_us / steps / 1e3:.2f} ms/step; device ms/step by kind {per};"
         f" {n / steps:.0f} kernels/step; device idle share "
         f"{1 - busy / wall_us:.3f}")
@@ -506,25 +898,29 @@ def phase_exact():
     from repro_torch.models import greedy_generate, init_params
     from repro_torch.serving import PDCluster, Request
 
-    cfg = get_config("llama31_8b", smoke=True)
-    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                        "cuda")
-    prof = profile(get_config("llama31_8b"), InstanceSpec(CHIPS["h100"], 1))
-    cl = PDCluster(cfg, model, TokenScalePolicy(prof, convertible=1),
-                   n_prefillers=1, n_decoders=1, n_convertible=1, max_len=96)
-    rng = np.random.RandomState(0)
-    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, size=(L,))
-                    .astype(np.int32), max_new_tokens=6)
-            for i, L in enumerate([7, 12, 5, 20, 9])]
-    for r in reqs:
-        cl.submit(r)
-    cl.run_until_drained()
-    same = [r.output == greedy_generate(cfg, model, r.prompt[None],
-                                        [len(r.prompt)], 6)[0].tolist()
-            for r in reqs]
-    log(f"[exact] SMOKE f32 PD tokens equal greedy_generate on the card: "
-        f"{same}; transfers {cl.transfers.n_transfers}")
-    check(all(same) and cl.transfers.n_transfers > 0, "exact tokens")
+    for arch in ("llama31_8b", "rwkv6_3b"):
+        cfg = get_config(arch, smoke=True)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        prof = profile(get_config(arch), InstanceSpec(CHIPS["h100"], 1))
+        cl = PDCluster(cfg, model, TokenScalePolicy(prof, convertible=1),
+                       n_prefillers=1, n_decoders=1, n_convertible=1,
+                       max_len=96)
+        rng = np.random.RandomState(0)
+        reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
+                                                  size=(L,)).astype(np.int32),
+                        max_new_tokens=6)
+                for i, L in enumerate([7, 12, 5, 20, 9])]
+        for r in reqs:
+            cl.submit(r)
+        cl.run_until_drained()
+        same = [r.output == greedy_generate(cfg, model, r.prompt[None],
+                                            [len(r.prompt)], 6)[0].tolist()
+                for r in reqs]
+        log(f"[exact] {cfg.name} f32 PD tokens equal greedy_generate on the "
+            f"card: {same}; transfers {cl.transfers.n_transfers}")
+        check(all(same) and cl.transfers.n_transfers > 0,
+              f"exact tokens ({arch})")
 
 
 def main() -> int:
@@ -537,13 +933,24 @@ def main() -> int:
     phase_build()
     errs, rows = phase_parity()
     launches = phase_serve()
+    torch.cuda.empty_cache()
+    launches["paged_decode_attention"] = phase_paged()
+    torch.cuda.empty_cache()
+    launches["wkv6"] = phase_rwkv()
+    torch.cuda.empty_cache()
     phase_exact()
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),
            "decode_attention":
            ("src/repro_torch/kernels/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:30")}
+            "src/repro/kernels/decode_attention.py:30"),
+           "paged_decode_attention":
+           ("src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_decode_attention.py:77"),
+           "wkv6":
+           ("src/repro_torch/kernels/csrc/wkv6.cu",
+            "src/repro/kernels/wkv6.py:32")}
     kernels = [dict(name=n, route="cuda", source=src[n][0],
                     replaces=src[n][1], launches=launches[n],
                     max_abs_err=errs[n], ms=rows[n]["ms"],

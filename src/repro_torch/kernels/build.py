@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("chunked_prefill_attention", "decode_attention")
+SOURCES = ("chunked_prefill_attention", "decode_attention",
+           "paged_decode_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,12 @@ _ARGTYPES = {
     # scale, stream
     "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _F, _P],
+    # dtype, q, pool_k, pool_v, tables, cur_lens, out, B, MB, BS, Hq, Hkv,
+    # D, scale, stream
+    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
+    # r, k, v, w, u, s0, y, sT, B, S, H, K, chunk, stream
+    "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

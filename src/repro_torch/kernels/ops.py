@@ -1,7 +1,8 @@
-"""Public wrappers around the Hopper attention kernels.
+"""Public wrappers around the Hopper kernels.
 
 Each wrapper keeps the reference package's signature and (B, S, H, D)
-layout (``repro/kernels/ops.py``) and dispatches by the device of the
+layout (``repro/kernels/ops.py``; the paged one that of
+``repro/kernels/paged_decode_attention.py``) and dispatches by the device of the
 tensors it is given: on the CPU it runs the plain version in
 ``kernels/ref.py``; on a CUDA device it launches the kernel, and raises if
 the kernel does not take the inputs or fails to launch.  There is no
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0}
+LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "wkv6": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -45,6 +47,10 @@ def _check_cuda(q, k, v):
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _int32(x: torch.Tensor, device) -> torch.Tensor:
@@ -76,7 +82,7 @@ def prefill_attention(q, k, v, offset, lengths, window: int = 0,
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              offset.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              B, Sq, Skv, Hq, Hkv, D, int(window), float(softcap),
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+             float(scale), _stream(q))
     _raise_on(err, "chunked_prefill_attention")
     LAUNCHES["chunked_prefill_attention"] += 1
     return out
@@ -100,8 +106,73 @@ def decode_attention_op(q, k, v, cur_lens, window: int = 0,
     fn = build.lib("decode_attention").decode_attention
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              cur_lens.data_ptr(), out.data_ptr(), B, L, Hq, Hkv, D,
-             int(window), float(softcap), float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(window), float(softcap), float(scale), _stream(q))
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
+                           scale: Optional[float] = None):
+    """(B,Hq,D) single-token decode against a shared (NB,BS,Hkv,D) page
+    pool through per-request block tables (B, MB) of page ids below NB,
+    -1 = unallocated."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(q, pool_k, pool_v, tables,
+                                              cur_lens, scale=scale)
+    B, Hq, D = q.shape
+    NB, BS, Hkv = pool_k.shape[:3]
+    if pool_k.shape != (NB, BS, Hkv, D) or pool_v.shape != pool_k.shape \
+            or tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(pool_k.shape)} "
+                         f"{tuple(pool_v.shape)} {tuple(tables.shape)}")
+    _check_cuda(q, pool_k, pool_v)
+    scale = scale if scale is not None else D ** -0.5
+    tables, cur_lens = _int32(tables, q.device), _int32(cur_lens, q.device)
+    out = torch.empty_like(q)
+    fn = build.lib("paged_decode_attention").paged_decode_attention
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
+             pool_v.data_ptr(), tables.data_ptr(), cur_lens.data_ptr(),
+             out.data_ptr(), B, tables.shape[1], BS, Hq, Hkv, D,
+             float(scale), _stream(q))
+    _raise_on(err, "paged_decode_attention")
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+WKV_HEAD_DIMS = (8, 16, 32, 64)
+WKV_MAX_CHUNK = 64
+
+
+def wkv6_op(r, k, v, w, u, s0, chunk: int = 16):
+    """(B,S,H,K)-layout WKV6: r, k, v, w (B,S,H,K), u (H,K), s0 (B,H,K,K),
+    all f32 -> (y (B,S,H,K), sT (B,H,K,K)).  A ragged tail needs no
+    padding: the kernel treats positions past S as w = 1, k = 0."""
+    if r.device.type == "cpu":
+        return ref.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
+    B, S, H, K = r.shape
+    if r.device.type != "cuda":
+        raise ValueError(f"no kernel for device {r.device}")
+    for name, t, shape in (("r", r, (B, S, H, K)), ("k", k, (B, S, H, K)),
+                           ("v", v, (B, S, H, K)), ("w", w, (B, S, H, K)),
+                           ("u", u, (H, K)), ("s0", s0, (B, H, K, K))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, not {shape}")
+        if t.device != r.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes f32 on {r.device}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if K not in WKV_HEAD_DIMS:
+        raise ValueError(f"head dim {K} not in {WKV_HEAD_DIMS}")
+    if not 1 <= chunk <= WKV_MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not in 1..{WKV_MAX_CHUNK}")
+    y = torch.empty_like(r)
+    sT = torch.empty_like(s0)
+    fn = build.lib("wkv6").wkv6
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
+             B, S, H, K, int(chunk), _stream(r))
+    _raise_on(err, "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return y, sT

@@ -1,11 +1,14 @@
-"""Plain PyTorch versions of the attention kernels (the correctness contract).
+"""Plain PyTorch versions of the kernels (the correctness contract).
 
-Each function is the reference package's ``kernels/ref.py`` oracle written
-in PyTorch: the same masks, the same finite ``NEG_INF`` sentinel (so a row
-with no visible key softmaxes to a uniform average, exactly as there), f32
-arithmetic, output in the input's dtype.  The CPU path of every wrapper in
-``kernels/ops.py`` runs these; on the card they are what the kernels are
-held against.
+The attention functions are the reference package's ``kernels/ref.py``
+oracles written in PyTorch: the same masks, the same finite ``NEG_INF``
+sentinel (so a row with no visible key softmaxes to a uniform average,
+exactly as there), f32 arithmetic, output in the input's dtype.  The paged
+one is the batched form of ``serving/paged.py``'s oracle.  ``wkv6_ref`` is
+the sequential RWKV-6 oracle and ``wkv6_chunked`` the reference model's
+chunked form of it (``models/ops.py: rwkv_wkv_chunked``).  The CPU path of
+every wrapper in ``kernels/ops.py`` runs these; on the card they are what
+the kernels are held against.
 """
 from __future__ import annotations
 
@@ -83,3 +86,92 @@ def decode_attention_ref(
     vf = torch.where(mask[:, :, None, None], v.float(), 0.0)
     o = torch.einsum("bkgl,blkd->bkgd", p, vf)
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_decode_attention_ref(
+        q: torch.Tensor,            # (B, Hq, D)
+        pool_k: torch.Tensor,       # (num_blocks, BS, Hkv, D)
+        pool_v: torch.Tensor,
+        tables: torch.Tensor,       # (B, max_blocks) int, -1 = unallocated
+        cur_lens: torch.Tensor,     # (B,)
+        scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over each request's pages: positions 0..cur_len
+    (inclusive) whose page is allocated.  Pages are gathered by the table
+    (an unallocated entry reads page 0 and is masked), so pages outside a
+    request's table are never touched."""
+    B, Hq, D = q.shape
+    BS, Hkv = pool_k.shape[1], pool_k.shape[2]
+    MB = tables.shape[1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    tables = tables.to(dev).long()
+    safe = tables.clamp(min=0)
+    k = pool_k[safe].reshape(B, MB * BS, Hkv, D).float()
+    v = pool_v[safe].reshape(B, MB * BS, Hkv, D).float()
+    pos = torch.arange(MB * BS, device=dev)[None]
+    valid = (pos <= cur_lens.to(dev).long()[:, None]) \
+        & (tables.repeat_interleave(BS, dim=1) >= 0)           # (B, MB*BS)
+    s = torch.einsum("bkgd,blkd->bkgl", q.reshape(B, Hkv, G, D).float(),
+                     k) * scale
+    s = torch.where(valid[:, None, None], s, torch.tensor(NEG_INF, device=dev))
+    p = torch.softmax(s, dim=-1)
+    # a masked position's weight is exactly 0 once any position is visible;
+    # zeroing its value too keeps garbage (even NaN) in an unallocated
+    # entry's stand-in page out of the result, as the kernel's never
+    # reading it does
+    v = torch.where(valid[:, :, None, None], v, 0.0)
+    o = torch.einsum("bkgl,blkd->bkgd", p, v)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0):
+    """RWKV-6 recurrence oracle, one token at a time.
+
+    r, k, v, w: (B, H, S, K) f32; u: (H, K); s0: (B, H, K, K).
+    Returns (y (B, H, S, K), sT (B, H, K, K)), f32."""
+    s = s0.float()
+    uu = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]          # (B,H,K,K)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], s + uu * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(ys, dim=2), s
+
+
+def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 16):
+    """The same recurrence in chunks of `chunk` tokens: the reference
+    model's ``rwkv_wkv_chunked`` (the Pallas kernel's plain twin).
+
+    r, k, v, w: (B, S, H, K) f32; u: (H, K); s0: (B, H, K, K).  A ragged
+    tail is padded with w = 1, k = 0, which leaves the state as it is.
+    Returns (y (B, S, H, K), sT (B, H, K, K)), f32."""
+    B, S, H, K = r.shape
+    pad = (-S) % chunk
+    if pad:
+        def ext(x, val):
+            return torch.cat([x, x.new_full((B, pad, H, K), val)], 1)
+        r, k, v, w = ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
+    strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    s = s0.float()
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        rc, kc, vc, wc = (x[:, c0:c0 + chunk] for x in (r, k, v, w))
+        logw = torch.log(wc.clamp(min=1e-38))
+        L = torch.cumsum(logw, dim=1)                            # (B,C,H,K)
+        q_in = rc * torch.exp(L - logw)
+        k_out = kc * torch.exp(-L)
+        y = torch.einsum("bchk,bhkv->bchv", q_in, s)
+        scores = torch.einsum("bthk,bshk->bhts", q_in, k_out)
+        scores = torch.where(strict, scores, 0.0)
+        diag = (rc * u[None, None] * kc).sum(-1)                 # (B,C,H)
+        y = y + torch.einsum("bhts,bshv->bthv", scores, vc)
+        y = y + diag[..., None] * vc
+        L_C = L[:, -1:]                                          # (B,1,H,K)
+        k_carry = kc * torch.exp(L_C - L)
+        s = torch.exp(L_C[:, 0])[..., None] * s \
+            + torch.einsum("bchk,bchv->bhkv", k_carry, vc)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :S], s

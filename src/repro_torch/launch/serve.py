@@ -8,6 +8,9 @@ H100 instance:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.1-8b \\
         --requests 32 [--device cpu]
+
+``--arch`` takes any config the port has: llama-3.1-8b, qwen-2.5-32b,
+rwkv6-3b.
 """
 from __future__ import annotations
 

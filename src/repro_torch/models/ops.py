@@ -1,12 +1,15 @@
-"""Layer math of the attention + dense-FFN decoder, in PyTorch.
+"""Layer math of the port's decoder layers, in PyTorch.
 
 The counterpart of the reference package's ``models/ops.py`` for the
-layers this slice ports.  ``apply_attn`` routes attention through the
-kernel wrappers (``kernels/ops.py``) the way the reference's
-``_pallas_attn`` does; with ``ApplyCtx.plain_attention`` it runs the
-masked ``_sdpa`` instead, which is how the reference computes by default
-and what the kernel path is compared with.  Accumulations are f32;
-activations run in cfg.dtype.  KV caches are updated in place.
+layers the port has: attention + dense FFN, and RWKV-6 time-mix +
+channel-mix.  ``apply_attn`` routes attention through the kernel wrappers
+(``kernels/ops.py``) the way the reference's ``_pallas_attn`` does, and
+``apply_rwkv_tm`` sends every prefill or chunk (S > 1) to ``wkv6_op`` as
+the reference does with its Pallas switch on.  With ``ApplyCtx.plain_kernels``
+they run the masked ``_sdpa`` and ``rwkv_wkv_chunked`` instead, which is how
+the reference computes by default and what the kernel path is compared
+with.  Accumulations are f32; activations run in cfg.dtype.  The state
+(KV caches, WKV and token-shift states) is updated in place.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models.params import _RWKV_LORA  # lora width shared with decls
 
 NEG_INF = -2.0 ** 30
 
@@ -30,7 +35,7 @@ class ApplyCtx:
     write_idx: np.ndarray          # (B,) host copy of positions[:, 0]
     lengths: Optional[torch.Tensor] = None   # (B,) prefill: valid lengths
     window: int = 0                # sliding window for local_attn layers
-    plain_attention: bool = False  # masked _sdpa instead of the kernels
+    plain_kernels: bool = False    # plain versions instead of the kernels
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +152,7 @@ def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     kc, vc = state["k"], state["v"]
     _update_cache(kc, k, ctx.write_idx, ctx.positions)
     _update_cache(vc, v, ctx.write_idx, ctx.positions)
-    if ctx.plain_attention:
+    if ctx.plain_kernels:
         k_pos = torch.arange(kc.shape[1], device=x.device)[None]
         mask = _causal_mask(ctx.positions, k_pos, ctx.lengths, ctx.window)
         out = _sdpa(q, kc, vc, mask, scale, cfg.attn_softcap)
@@ -171,3 +176,88 @@ def apply_dense_ffn(cfg: ModelConfig, p, x):
     if cfg.post_norms:
         out = rmsnorm(out, p.ln2_post, cfg.norm_plus_one)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): data-dependent decay time-mix + channel-mix
+# ---------------------------------------------------------------------------
+
+rwkv_wkv_chunked = kref.wkv6_chunked   # the plain chunked WKV6, (B,S,H,K)
+
+
+def _token_shift(x, shift_state):
+    """x: (B,S,d); shift_state: (B,d) = last token of the previous chunk."""
+    prev = torch.cat([shift_state[:, None], x[:, :-1]], dim=1)
+    return prev - x
+
+
+def rwkv_wkv(r, k, v, w, u, s0):
+    """WKV6 recurrence token by token (decode, S = 1).
+
+    r, k, v, w: (B,S,H,K) f32; u: (H,K); s0: (B,H,K,K).
+    Returns y: (B,S,H,K), sT."""
+    y, sT = kref.wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, w)), u, s0)
+    return y.transpose(1, 2), sT
+
+
+def _last_valid(h, ctx: ApplyCtx):
+    """Last *valid* token's activation (B, d), honoring padded prefill.
+
+    Indices are local to the chunk: absolute length minus chunk start."""
+    if ctx.lengths is None:
+        return h[:, -1]
+    idx = (ctx.lengths - ctx.positions[:, 0] - 1).clamp(0, h.shape[1] - 1)
+    return h[torch.arange(h.shape[0], device=h.device), idx.long()]
+
+
+def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    B, S, d = x.shape
+    K = cfg.rwkv_head_dim
+    H = d // K
+    h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
+    sx = _token_shift(h, state["shift_t"].to(h.dtype))
+    xxx = h + sx * p.mu_x
+    lora = torch.tanh(xxx @ p.lora_A).reshape(B, S, 5, _RWKV_LORA)
+    mixes = torch.einsum("bsln,lnd->bsld", lora, p.lora_B)
+    xw, xk, xv, xr, xg = [
+        h + sx * (getattr(p, f"mu_{n}") + mixes[:, :, i])
+        for i, n in enumerate(("w", "k", "v", "r", "g"))]
+    r = (xr @ p.wr).reshape(B, S, H, K).float()
+    k = (xk @ p.wk).reshape(B, S, H, K).float()
+    v = (xv @ p.wv).reshape(B, S, H, K).float()
+    g = F.silu(xg @ p.wg)
+    wdec = p.w0.float() + (torch.tanh(xw @ p.decay_A) @ p.decay_B).float()
+    w = torch.exp(-torch.exp(wdec)).reshape(B, S, H, K)
+    u = p.u.float().reshape(H, K)
+    if ctx.lengths is not None:
+        # padded prefill: no decay, no writes past each row's valid length
+        m = (ctx.positions < ctx.lengths[:, None])[:, :, None, None]
+        w = torch.where(m, w, 1.0)
+        k = k * m
+    s0 = state["wkv"].float()
+    if S == 1:
+        y, sT = rwkv_wkv(r, k, v, w, u, s0)
+    elif ctx.plain_kernels:
+        y, sT = rwkv_wkv_chunked(r, k, v, w, u, s0)
+    else:
+        y, sT = kops.wkv6_op(r, k, v, w, u, s0)
+    # per-head groupnorm
+    mu = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(B, S, d) * p.lnx_g.float() + p.lnx_b.float()
+    out = (y.to(x.dtype) * g) @ p.wo
+    state["wkv"].copy_(sT)
+    state["shift_t"].copy_(_last_valid(h, ctx))
+    return out.to(x.dtype), state
+
+
+def apply_rwkv_cm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
+    sx = _token_shift(h, state["shift_c"].to(h.dtype))
+    xk = h + sx * p.mu_ck
+    xr = h + sx * p.mu_cr
+    kk = torch.square(torch.relu(xk @ p.wk_cm))
+    out = torch.sigmoid(xr @ p.wr_cm) * (kk @ p.wv_cm)
+    state["shift_c"].copy_(_last_valid(h, ctx))
+    return out.to(x.dtype), state

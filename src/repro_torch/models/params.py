@@ -1,19 +1,23 @@
-"""Parameters and decode state of the attention + dense-FFN decoder.
+"""Parameters and decode state of the port's decoder layers.
 
-The leaf names and shapes are those of the reference package's
-``models/params.py`` (``_attn_leaves``, ``_dense_ffn_leaves``, ``embed``,
-``final_norm``, ``lm_head``), so a parameter tree made there carries over
-one to one (``from_jax_params``).  Where the reference stacks the repeated
-block's leaves under a leading ``num_blocks`` dim for ``lax.scan``, the port
-keeps one ``DecoderLayer`` module per layer and loops over them.
+The leaf names, shapes, dtypes and init tags are those of the reference
+package's ``models/params.py`` (``_attn_leaves``, ``_dense_ffn_leaves``,
+``_rwkv_tm_leaves``, ``_rwkv_cm_leaves``, ``embed``, ``final_norm``,
+``lm_head``), so a parameter tree made there carries over one to one
+(``from_jax_params``).  Where the reference stacks the repeated block's
+leaves under a leading ``num_blocks`` dim for ``lax.scan``, the port keeps
+one ``DecoderLayer`` module per layer and loops over them.
 
-The state is one ``{"k", "v"}`` dict of (B, max_len, Hkv, D) caches per
-layer, updated in place by the forward pass.
+The state is one dict per layer, updated in place by the forward pass:
+``{"k", "v"}`` (B, max_len, Hkv, D) caches for an attention layer, and
+``{"wkv"}`` (B, H, K, K) f32 plus ``{"shift_t", "shift_c"}`` (B, d) for an
+RWKV-6 layer.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,7 +31,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclass(frozen=True)
 class Leaf:
     shape: tuple[int, ...]
-    init: str = "fanin"          # fanin | zeros | ones | embed
+    init: str = "fanin"          # fanin | zeros | ones | embed | const:<v> | decay
+    dtype: Optional[str] = None  # None -> cfg.param_dtype
 
 
 def _attn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
@@ -58,8 +63,49 @@ def _dense_ffn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     return t
 
 
+_RWKV_LORA = 32
+_RWKV_DECAY_LORA = 64
+
+
+def _rwkv_tm_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
+    """RWKV-6 time-mix.  ``w0`` and ``u`` stay f32 in a bf16 model;
+    ``lora_B`` and ``decay_B`` start at zero, so the decay starts at
+    ``w0``'s (``decay`` tag: -6 .. -1 across channels)."""
+    d = cfg.d_model
+    t = {"ln1": Leaf((d,), "ones")}
+    for n in ("x", "w", "k", "v", "r", "g"):
+        t[f"mu_{n}"] = Leaf((d,), "const:0.5")
+    t["lora_A"] = Leaf((d, 5 * _RWKV_LORA))
+    t["lora_B"] = Leaf((5, _RWKV_LORA, d), "zeros")
+    t["w0"] = Leaf((d,), "decay", "float32")
+    t["decay_A"] = Leaf((d, _RWKV_DECAY_LORA))
+    t["decay_B"] = Leaf((_RWKV_DECAY_LORA, d), "zeros")
+    t["u"] = Leaf((d,), "const:0.5", "float32")
+    for n in ("wr", "wk", "wv", "wg", "wo"):
+        t[n] = Leaf((d, d))
+    t["lnx_g"] = Leaf((d,), "ones")
+    t["lnx_b"] = Leaf((d,), "zeros")
+    return t
+
+
+def _rwkv_cm_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln2": Leaf((d,), "ones"),
+            "mu_ck": Leaf((d,), "const:0.5"),
+            "mu_cr": Leaf((d,), "const:0.5"),
+            "wk_cm": Leaf((d, f)),
+            "wv_cm": Leaf((f, d)),
+            "wr_cm": Leaf((d, d))}
+
+
+_MIXERS = {"attn": _attn_leaves, "local_attn": _attn_leaves,
+           "rwkv": _rwkv_tm_leaves}
+_FFNS = {"dense": _dense_ffn_leaves, "rwkv_cm": _rwkv_cm_leaves}
+
+
 def check_supported(cfg: ModelConfig):
-    """This slice ports attention + dense-FFN decoders only."""
+    """The port has attention / RWKV-6 mixers and dense / RWKV channel-mix
+    FFNs; anything else is refused by name."""
     if cfg.kv_lora_rank:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is ported in a later slice "
@@ -69,7 +115,7 @@ def check_supported(cfg: ModelConfig):
             f"{cfg.name}: the int8 KV cache is ported in a later slice "
             "(ROADMAP A8)")
     for spec in cfg.layer_specs:
-        if spec.mixer not in ("attn", "local_attn") or spec.ffn != "dense":
+        if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
             raise NotImplementedError(
                 f"{cfg.name}: {spec.mixer}/{spec.ffn} layers are ported in "
                 "a later slice (ROADMAP A8)")
@@ -83,17 +129,21 @@ class _Leaves(nn.Module):
         self.leaves = leaves
         for name, lf in leaves.items():
             self.register_parameter(name, nn.Parameter(
-                torch.empty(lf.shape, dtype=dtype, device=device),
+                torch.empty(lf.shape, device=device,
+                            dtype=DTYPES[lf.dtype] if lf.dtype else dtype),
                 requires_grad=False))
 
 
 class DecoderLayer(_Leaves):
-    """One residual layer: attention (``ln1``, ``wq``...) + dense FFN
-    (``ln2``, ``w_gate``...), the reference's per-layer leaves."""
+    """One residual layer: the leaves of its spec's mixer (attention
+    ``ln1``, ``wq``... or RWKV time-mix ``mu_x``, ``w0``...) and FFN (dense
+    ``w_gate``... or channel-mix ``wk_cm``...), the reference's per-layer
+    leaves."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
-        super().__init__({**_attn_leaves(cfg), **_dense_ffn_leaves(cfg)},
+        super().__init__({**_MIXERS[spec.mixer](cfg), **_FFNS[spec.ffn](cfg)},
                          DTYPES[cfg.param_dtype], device)
+        self.spec = spec
         self.window = cfg.sliding_window if spec.mixer == "local_attn" else 0
 
 
@@ -129,8 +179,9 @@ def _leaf_modules(model: Transformer):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A model with seeded random weights, made on `device`: fan-in normal
-    (std 1/sqrt(fan_in)), 0.02 normal for the embedding, ones and zeros as
-    tagged.  `generator` must live on `device`."""
+    (std 1/sqrt(fan_in)), 0.02 normal for the embedding, ones, zeros,
+    constants and the RWKV decay ramp as tagged.  `generator` must live on
+    `device`."""
     model = Transformer(cfg, device)
     for mod in _leaf_modules(model):
         for name, lf in mod.leaves.items():
@@ -139,6 +190,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 p.zero_()
             elif lf.init == "ones":
                 p.fill_(1.0)
+            elif lf.init.startswith("const:"):
+                p.fill_(float(lf.init[6:]))
+            elif lf.init == "decay":
+                d = lf.shape[-1]
+                ramp = torch.arange(d, dtype=torch.float32, device=device)
+                p.copy_(-6.0 + 5.0 * (ramp / max(d - 1, 1)))
             else:
                 fan_in = lf.shape[-2] if len(lf.shape) >= 2 else lf.shape[-1]
                 std = 0.02 if lf.init == "embed" else 1.0 / math.sqrt(
@@ -175,15 +232,31 @@ def from_jax_params(cfg: ModelConfig, tree, device="cuda") -> Transformer:
     return model
 
 
-def init_state(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> list[dict[str, torch.Tensor]]:
-    """Zeroed per-layer KV caches, (batch, max_len, Hkv, D) in cfg.dtype."""
-    check_supported(cfg)
+def _layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                 max_len: int, device) -> dict[str, torch.Tensor]:
+    dt = DTYPES[cfg.dtype]
+    if spec.mixer == "rwkv":
+        K = cfg.rwkv_head_dim
+        return {"wkv": torch.zeros((batch, cfg.d_model // K, K, K),
+                                   dtype=torch.float32, device=device),
+                "shift_t": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                       device=device),
+                "shift_c": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                       device=device)}
     dt = DTYPES[cfg.kv_cache_dtype or cfg.dtype]
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in cfg.layer_specs]
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_state(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> list[dict[str, torch.Tensor]]:
+    """Zeroed per-layer state: (batch, max_len, Hkv, D) KV caches in
+    cfg.dtype for attention; for RWKV-6 the f32 (batch, H, K, K) WKV state
+    and the (batch, d) token-shift states in cfg.dtype (no max_len)."""
+    check_supported(cfg)
+    return [_layer_state(cfg, spec, batch, max_len, device)
+            for spec in cfg.layer_specs]
 
 
 def count_params(model: nn.Module) -> int:

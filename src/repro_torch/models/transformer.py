@@ -1,8 +1,8 @@
 """Decoder-only transformer entry points over the port's layers.
 
 The counterpart of the reference package's ``models/transformer.py``: a
-Python loop over the layers takes the place of ``lax.scan``, and the KV
-caches in ``state`` are updated in place (each entry point also returns
+Python loop over the layers takes the place of ``lax.scan``, and the state
+(KV caches, RWKV states) is updated in place (each entry point also returns
 the state, as the reference does).  Lengths, chunk starts and cache
 lengths are taken on the host, where the serving loop keeps them.
 
@@ -37,11 +37,19 @@ def _tokens(x, device) -> torch.Tensor:
 
 
 def _apply_layer(cfg: ModelConfig, layer, x, state, ctx: ApplyCtx):
-    """Residual layer = attention + dense FFN."""
+    """Residual layer = mixer (attention or RWKV-6 time-mix) + FFN (dense
+    or RWKV channel-mix), as its LayerSpec says."""
     lctx = dataclasses.replace(ctx, window=layer.window)
-    out, state = ops.apply_attn(cfg, layer, x, state, lctx)
+    if layer.spec.mixer == "rwkv":
+        out, state = ops.apply_rwkv_tm(cfg, layer, x, state, lctx)
+    else:
+        out, state = ops.apply_attn(cfg, layer, x, state, lctx)
     x = x + out
-    return x + ops.apply_dense_ffn(cfg, layer, x)
+    if layer.spec.ffn == "rwkv_cm":
+        out, state = ops.apply_rwkv_cm(cfg, layer, x, state, lctx)
+    else:
+        out = ops.apply_dense_ffn(cfg, layer, x)
+    return x + out
 
 
 def _embed(cfg: ModelConfig, params: Transformer, tokens):
@@ -66,7 +74,7 @@ def _backbone(cfg: ModelConfig, params: Transformer, x, state,
 
 
 def _ctx(mode, starts: np.ndarray, S: int, device, lengths=None,
-         plain_attention=False) -> ApplyCtx:
+         plain_kernels=False) -> ApplyCtx:
     pos = starts[:, None] + np.arange(S)[None]
     return ApplyCtx(
         mode=mode,
@@ -74,25 +82,26 @@ def _ctx(mode, starts: np.ndarray, S: int, device, lengths=None,
         write_idx=starts,
         lengths=None if lengths is None else torch.as_tensor(
             lengths, dtype=torch.int32).to(device),
-        plain_attention=plain_attention)
+        plain_kernels=plain_kernels)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Transformer, state, tokens, lengths,
-            start=None, plain_attention: bool = False):
+            start=None, plain_kernels: bool = False):
     """Prompt processing; fills `state` at offset `start` (default 0).
 
     `lengths` is the ABSOLUTE valid length (start + valid tokens in this
     chunk): chunked prefill passes consecutive windows with increasing
-    `start`.  `plain_attention` runs the masked _sdpa in place of the
-    kernels, to hold the kernels' logits against it on the card.
+    `start`.  `plain_kernels` runs the plain versions (masked _sdpa,
+    chunked WKV6) in place of the kernels, to hold the kernels' logits
+    against them on the card.
     Returns (last_token_logits (B,V), state)."""
     dev = params.device
     tokens = _tokens(tokens, dev)
     B, S = tokens.shape
     lengths = _host_ints(lengths)
     start = np.zeros(B, np.int64) if start is None else _host_ints(start)
-    ctx = _ctx("prefill", start, S, dev, lengths, plain_attention)
+    ctx = _ctx("prefill", start, S, dev, lengths, plain_kernels)
     x = _backbone(cfg, params, _embed(cfg, params, tokens), state, ctx)
     # unembed ONLY the last valid position, as the reference does
     idx = np.clip(lengths - start - 1, 0, S - 1)

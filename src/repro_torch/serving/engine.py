@@ -11,9 +11,15 @@ by a preallocated per-slot KV cache on the params' device.
                       slots, then one restricted prefill chunk of the
                       pending request
 
-The caches are updated in place.  So ``_read_slot`` returns a copy: the
-mixed step's decode half also writes a KV row into the pending slot (at
-its cur_len of 0), and the chunk must be prefilled from the slot as it was.
+The state is updated in place.  So ``_read_slot`` returns a copy: the
+mixed step's decode half also writes into the pending slot (a KV row at
+its cur_len of 0, or a step of its recurrent state), and the chunk must be
+prefilled from the slot as it was.  A request's first chunk starts from a
+zeroed state instead: a reused slot still holds its last request's
+recurrent state, and every decode step advances the recurrent state of
+idle slots too.  (The reference reads the slot at every chunk, so a
+recurrent model's chunked request in a reused slot starts from that stale
+state there.)
 """
 from __future__ import annotations
 
@@ -238,7 +244,8 @@ class Engine:
         chunk[0, :n] = req.prompt[start:start + n]
         slot = req.slot
         t0 = time.perf_counter()
-        st1 = _read_slot(self.state, slot)        # before decode writes it
+        st1 = (init_state(self.cfg, 1, self.max_len, self.device)
+               if start == 0 else _read_slot(self.state, slot))
         logits, self.state = decode_step(self.cfg, self.params, self.state,
                                          self.last_tokens, self.cur_lens)
         clog, st1 = prefill(self.cfg, self.params, st1, chunk,

@@ -7,11 +7,14 @@ the same interface:
     nbytes  = payload_bytes(payload)           # what would cross the wire
     state   = insert(cfg, pool_state, payload, slot)   # decoder side
 
-``extract`` copies the request's slot and trims each cache to the request's
-length rounded up to 128 tokens (at least 8), so ``payload_bytes`` is the
-reference's for the same config and length; it is the measured source of
-the network-stage Token Velocity.  Instances share one process and one
-device, so the "wire" is a device-to-device copy.
+``extract`` copies the request's slot and trims each sequence leaf (a KV
+cache) to the request's length rounded up to 128 tokens (at least 8); a
+recurrent state (RWKV-6's ``wkv``, ``shift_t``, ``shift_c``) crosses whole,
+which is why an attention-free model's payload does not grow with the
+prompt (§III-C).  ``payload_bytes`` is the reference's for the same config
+and length; it is the measured source of the network-stage Token
+Velocity.  Instances share one process and one device, so the "wire" is a
+device-to-device copy.
 """
 from __future__ import annotations
 
@@ -23,16 +26,23 @@ from repro_torch.configs.base import ModelConfig
 
 @dataclass
 class KVPayload:
-    """One request's transferable state (batch-1, length-trimmed)."""
-    tree: list              # per-layer {"k", "v"} tensors (1, n, Hkv, D)
+    """One request's transferable state: per-layer state dicts of batch 1,
+    {"k", "v"} (1, n, Hkv, D) with n the rounded length, or an RWKV-6
+    layer's whole {"wkv", "shift_t", "shift_c"}."""
+    tree: list
     length: int
 
 
+# the leaves with a sequence axis (right after batch): the reference's list
+_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
+
+
 def extract(cfg: ModelConfig, state, length: int, slot: int = 0) -> KVPayload:
-    """Copy slot `slot` out of a pooled state, trimming the caches to
-    `length` tokens (rounded up to 128)."""
+    """Copy slot `slot` out of a pooled state, trimming the sequence leaves
+    to `length` tokens (rounded up to 128); other leaves cross whole."""
     n = max(int(math.ceil(length / 128.0)) * 128, 8)
-    tree = [{key: leaf[slot:slot + 1, :min(n, leaf.shape[1])].clone()
+    tree = [{key: (leaf[slot:slot + 1, :min(n, leaf.shape[1])]
+                   if key in _SEQ_LEAVES else leaf[slot:slot + 1]).clone()
              for key, leaf in layer.items()}
             for layer in state]
     return KVPayload(tree=tree, length=length)
@@ -40,14 +50,17 @@ def extract(cfg: ModelConfig, state, length: int, slot: int = 0) -> KVPayload:
 
 def insert(cfg: ModelConfig, pool_state, payload: KVPayload, slot: int):
     """Write a payload into slot `slot` of a decoder's pooled state, in
-    place; cache rows past the payload are zeroed, as the reference's
+    place; sequence rows past the payload are zeroed, as the reference's
     re-padding does."""
     for pool_layer, one_layer in zip(pool_state, payload.tree):
         for key, leaf in pool_layer.items():
             one = one_layer[key][0]
-            n = one.shape[0]
-            leaf[slot, :n].copy_(one)
-            leaf[slot, n:].zero_()
+            if key in _SEQ_LEAVES:
+                n = one.shape[0]
+                leaf[slot, :n].copy_(one)
+                leaf[slot, n:].zero_()
+            else:
+                leaf[slot].copy_(one)
     return pool_state
 
 

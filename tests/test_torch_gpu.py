@@ -6,9 +6,9 @@ On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are the reference's: 2e-5 in f32, 3e-2 in bf16; at the
-main-path shapes bf16 is also held to 2e-5 + 2 bf16 steps of the plain
-value.
+Tolerances are the reference's: 2e-5 in f32, 3e-2 in bf16, 2e-4 for
+WKV6 (f32 only); at the main-path shapes bf16 attention is also held to
+2e-5 + 2 bf16 steps of the plain value.
 """
 import numpy as np
 import pytest
@@ -184,9 +184,16 @@ def test_wrappers_count_launches(cuda):
     kops.prefill_attention(q, kv, kv, torch.zeros(1, device=cuda),
                            torch.full((1,), 8, device=cuda))
     kops.decode_attention_op(q[:, 0], kv, kv, torch.tensor([3], device=cuda))
+    kops.paged_decode_attention(q[:, 0], kv, kv,
+                                torch.zeros(1, 1, device=cuda),
+                                torch.tensor([3], device=cuda))
+    x = torch.rand(1, 8, 2, 16, device=cuda)
+    kops.wkv6_op(x, x, x, x, torch.rand(2, 16, device=cuda),
+                 torch.zeros(1, 2, 16, 16, device=cuda))
     torch.cuda.synchronize()
     assert kops.LAUNCHES == {"chunked_prefill_attention": 1,
-                             "decode_attention": 1}
+                             "decode_attention": 1,
+                             "paged_decode_attention": 1, "wkv6": 1}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
@@ -198,12 +205,20 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     kv16 = torch.randn(1, 8, 2, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         kops.decode_attention_op(q16[:, 0], kv16, kv16, torch.zeros(1))
+    x = torch.rand(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError):              # WKV6 takes f32 only
+        kops.wkv6_op(x.bfloat16(), x, x, x, torch.rand(2, 16, device=cuda),
+                     torch.zeros(1, 2, 16, 16, device=cuda))
+    with pytest.raises(ValueError):              # and contiguous tensors
+        kops.wkv6_op(x.transpose(1, 2), x, x, x,
+                     torch.rand(2, 16, device=cuda),
+                     torch.zeros(1, 2, 16, 16, device=cuda))
 
 
 @pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b"])
 def test_engine_on_card_matches_greedy(cuda, arch):
     """SMOKE model on the card: the convertible engine's tokens equal the
-    port's own greedy generation, and both kernels ran."""
+    port's own greedy generation, and both attention kernels ran."""
     from repro_torch import models as tm
     from repro_torch.serving import Engine, Request
     cfg = get_config(arch, smoke=True)
@@ -220,7 +235,178 @@ def test_engine_on_card_matches_greedy(cuda, arch):
         eng.add_request(r)
     eng.run_until_drained()
     assert eng.mixed_steps > 0
-    assert all(n > 0 for n in kops.LAUNCHES.values()), kops.LAUNCHES
+    assert kops.LAUNCHES["chunked_prefill_attention"] > 0, kops.LAUNCHES
+    assert kops.LAUNCHES["decode_attention"] > 0, kops.LAUNCHES
     for r, p in zip(reqs, prompts):
         want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6)
         assert r.output == want[0].tolist(), r.rid
+
+
+def test_rwkv_engine_on_card_matches_greedy(cuda):
+    """rwkv6 SMOKE on the card: the convertible engine (chunks and reused
+    slots) gives the port's own greedy tokens, through the WKV6 kernel."""
+    from repro_torch import models as tm
+    from repro_torch.serving import Engine, Request
+    cfg = get_config("rwkv6_3b", smoke=True)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(L,)).astype(np.int32)
+               for L in (7, 12, 5, 20)]
+    kops.reset_launches()
+    eng = Engine(cfg, model, num_slots=2, max_len=64, chunk_size=8)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_drained()
+    assert eng.mixed_steps > 0 and kops.LAUNCHES["wkv6"] > 0
+    for r, p in zip(reqs, prompts):
+        want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6)
+        assert r.output == want[0].tolist(), r.rid
+
+
+# ---------------------------------------------------------------------------
+# WKV6
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(cuda, B, S, H, K, seed, model_decay=False, s0_zero=False):
+    """r, k, v ~ N(0, 1); w in (0, 1): the reference test's exp(-exp(
+    N(-1, 0.5))), or with `model_decay` a model-like w0 in [-6, -1] across
+    channels plus N(0, 0.5) noise; u ~ N(0, 1); s0 ~ N(0, 1) or 0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r, k, v = (_randn(g, B, S, H, K) for _ in range(3))
+    z = _randn(g, B, S, H, K)
+    if model_decay:
+        w0 = -6.0 + 5.0 * torch.arange(H * K, device=cuda).reshape(H, K) \
+            / (H * K - 1)
+        w = torch.exp(-torch.exp(w0 + 0.5 * z))
+    else:
+        w = torch.exp(-torch.exp(0.5 * z - 1))
+    u = _randn(g, H, K)
+    s0 = torch.zeros(B, H, K, K, device=cuda) if s0_zero \
+        else _randn(g, B, H, K, K)
+    return r, k, v, w, u, s0
+
+
+def _wkv_check(args, chunk=16, oracle=True):
+    y, sT = kops.wkv6_op(*args, chunk=chunk)
+    want_y, want_s = ref.wkv6_chunked(*args, chunk=chunk)
+    _close(y, want_y, 2e-4)
+    _close(sT, want_s, 2e-4)
+    if oracle:
+        r, k, v, w, u, s0 = args
+        oy, os_ = ref.wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, w)),
+                               u, s0)
+        _close(y, oy.transpose(1, 2), 2e-4)
+        _close(sT, os_, 2e-4)
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", [
+    (1, 16, 1, 8, 16), (2, 37, 2, 16, 16), (1, 64, 4, 32, 32),
+    (2, 16, 2, 64, 8)])
+def test_wkv6_kernel_reference_sweep(cuda, B, S, H, K, chunk):
+    _wkv_check(_wkv_inputs(cuda, B, S, H, K, seed=B * 100 + S), chunk)
+
+
+@pytest.mark.parametrize("S,s0_zero", [(1024, True), (256, False),
+                                       (8, False)],
+                         ids=["prompt1024", "chunk256", "tail8"])
+def test_wkv6_kernel_main_path(cuda, S, s0_zero):
+    """RWKV-6 3B heads (H=40, K=64) with model-like decays: a prompt from a
+    zero state, a convertible chunk from a carried state, a ragged tail."""
+    _wkv_check(_wkv_inputs(cuda, 1, S, 40, 64, seed=S, model_decay=True,
+                           s0_zero=s0_zero), oracle=S <= 256)
+
+
+def test_wkv6_kernel_state_carry_composes(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 1, 40, 2, 64, seed=7)
+    y_full, sT_full = kops.wkv6_op(r, k, v, w, u, s0)
+    h = 24
+    y1, s_mid = kops.wkv6_op(*(t[:, :h].contiguous() for t in (r, k, v, w)),
+                             u, s0)
+    y2, sT = kops.wkv6_op(*(t[:, h:].contiguous() for t in (r, k, v, w)), u,
+                          s_mid)
+    _close(torch.cat([y1, y2], 1), y_full, 2e-4)
+    _close(sT, sT_full, 2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
+
+def _interleaved_pages(cuda, lens, n_blocks, bs=128):
+    """Tables of a BlockAllocator that hands out one page to each request
+    in turn, so every request's pages are non-contiguous."""
+    from repro_torch.serving.paged import BlockAllocator
+    al = BlockAllocator(n_blocks)
+    need = [-(-n // bs) for n in lens]
+    tables = np.full((len(lens), max(need)), -1, np.int32)
+    for i in range(max(need)):
+        for b, n in enumerate(need):
+            if i < n:
+                tables[b, i] = al.alloc(b)
+    return torch.as_tensor(tables, device=cuda)
+
+
+def _main_path_paged(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
+    tables = _interleaved_pages(cuda, (cur + 1).tolist(), 40)
+    q = _randn(g, 4, 32, 128, dtype=dtype)
+    pk = _randn(g, 40, 128, 8, 128, dtype=dtype)
+    pv = _randn(g, 40, 128, 8, 128, dtype=dtype)
+    return q, pk, pv, tables, cur
+
+
+@pytest.mark.parametrize("B,MB,NB,BS,Hq,Hkv,D", [
+    (1, 2, 4, 16, 2, 1, 16), (3, 4, 12, 16, 4, 2, 32),
+    (2, 3, 8, 32, 8, 8, 64)])
+def test_paged_kernel_reference_cases(cuda, B, MB, NB, BS, Hq, Hkv, D):
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + MB)
+    pk, pv = _randn(g, NB, BS, Hkv, D), _randn(g, NB, BS, Hkv, D)
+    perm = torch.randperm(NB, generator=g, device=cuda)
+    tables = torch.full((B, MB), -1, dtype=torch.int32, device=cuda)
+    curs, j = [], 0
+    for b in range(B):
+        n = 1 + (b * 7 + MB) % MB
+        tables[b, :n] = perm[j:j + n]
+        j += n
+        curs.append((b * 37 + 5) % (n * BS))
+    cur = torch.tensor(curs, device=cuda)
+    q = _randn(g, B, Hq, D)
+    _close(kops.paged_decode_attention(q, pk, pv, tables, cur),
+           ref.paged_decode_attention_ref(q, pk, pv, tables, cur), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_main_path(cuda, dtype):
+    """Llama-3.1-8B heads over interleaved 128-token pages: the plain
+    version, and the contiguous decode kernel on the gathered KV."""
+    q, pk, pv, tables, cur = _main_path_paged(cuda, dtype)
+    out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    want = ref.paged_decode_attention_ref(q, pk, pv, tables, cur)
+    k = pk[tables.clamp(min=0).long()].reshape(4, -1, 8, 128)
+    v = pv[tables.clamp(min=0).long()].reshape(4, -1, 8, 128)
+    contiguous = kops.decode_attention_op(q, k, v, cur)
+    if dtype == torch.bfloat16:
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+        _close(out, contiguous, 3e-2)
+        _within_bf16_steps(out, contiguous)
+    else:
+        _close(out, want, 2e-5)
+        _close(out, contiguous, 2e-5)
+
+
+def test_paged_kernel_never_reads_foreign_pages(cuda):
+    q, pk, pv, tables, cur = _main_path_paged(cuda, torch.float32)
+    want = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    used = set(tables[tables >= 0].tolist())
+    foreign = [i for i in range(pk.shape[0]) if i not in used]
+    pk[foreign] = float("nan")
+    pv[foreign] = float("nan")
+    out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, want)

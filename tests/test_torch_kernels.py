@@ -3,7 +3,8 @@ against the reference package's kernels, on the same numpy inputs.
 
 The reference runs its Pallas kernels in interpret mode on the CPU, as
 tests/test_kernels.py does.  Tolerances are the reference's own: 2e-5 in
-f32, 3e-2 in bf16.
+f32, 3e-2 in bf16, 2e-4 for WKV6 (1e-4 for its zero-key property).  The
+paged kernel's plain version is tested in test_torch_paged.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 SWEEP = [
     # B, Sq, Skv, Hq, Hkv, D, window, softcap
@@ -152,8 +154,13 @@ def test_cpu_path_launches_no_kernel():
     kv = torch.randn(1, 8, 2, 16)
     tops.prefill_attention(q, kv, kv, torch.zeros(1), torch.full((1,), 8))
     tops.decode_attention_op(q[:, 0], kv, kv, torch.tensor([3]))
+    tops.paged_decode_attention(q[:, 0], kv[0, None], kv[0, None],
+                                torch.zeros(1, 1), torch.tensor([3]))
+    x = torch.rand(1, 8, 2, 16)
+    tops.wkv6_op(x, x, x, x, torch.rand(2, 16), torch.zeros(1, 2, 16, 16))
     assert tops.LAUNCHES == {"chunked_prefill_attention": 0,
-                             "decode_attention": 0}
+                             "decode_attention": 0,
+                             "paged_decode_attention": 0, "wkv6": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -163,3 +170,96 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tops.prefill_attention(q, kv, kv, torch.zeros(1), torch.ones(1))
     with pytest.raises(ValueError, match="no kernel"):
         tops.decode_attention_op(q[:, 0], kv, kv, torch.zeros(1))
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.paged_decode_attention(q[:, 0], kv, kv, torch.zeros(1, 1),
+                                    torch.zeros(1))
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.wkv6_op(q, q, q, q, torch.empty(2, 16, device="meta"),
+                     torch.empty(1, 2, 16, 16, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# WKV6: the plain chunked version against the Pallas kernel and the oracle
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(B, S, H, K, seed=0):
+    """tests/test_kernels.py's inputs: (B,S,H,K) r, k, v, w in (0, 1),
+    u (H,K), s0 (B,H,K,K)."""
+    rng = np.random.RandomState(seed)
+    r = rng.randn(B, S, H, K).astype(np.float32)
+    k = rng.randn(B, S, H, K).astype(np.float32)
+    v = rng.randn(B, S, H, K).astype(np.float32)
+    w = np.exp(-np.exp(rng.randn(B, S, H, K).astype(np.float32) * 0.5 - 1))
+    u = rng.randn(H, K).astype(np.float32)
+    s0 = rng.randn(B, H, K, K).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _bhsk(a):
+    return np.asarray(a).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", [
+    (1, 16, 1, 8, 16),
+    (2, 37, 2, 16, 16),      # padded tail
+    (1, 64, 4, 32, 32),
+    (2, 16, 2, 64, 8),
+])
+def test_wkv6_matches_reference(B, S, H, K, chunk):
+    args = _wkv_inputs(B, S, H, K, seed=B * 100 + S)
+    y, sT = tops.wkv6_op(*map(_t, args), chunk=chunk)
+    jargs = [jnp.asarray(a) for a in args]
+    jy, jsT = jops.wkv6_op(*jargs, chunk=chunk)
+    r, k, v, w, u, s0 = args
+    oy, osT = jref.wkv6_ref(*(jnp.asarray(_bhsk(a)) for a in (r, k, v, w)),
+                            jnp.asarray(u), jnp.asarray(s0))
+    for got, want in ((y, jy), (sT, jsT), (y, _bhsk(oy)), (sT, osT)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-4, rtol=2e-4)
+
+
+def test_wkv6_oracles_agree():
+    """The port's own sequential oracle (kernels/ref.py wkv6_ref) equals
+    the reference's on the padded-tail case."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 37, 2, 16, seed=237)
+    got = tref.wkv6_ref(*(_t(_bhsk(a)) for a in (r, k, v, w)), _t(u), _t(s0))
+    want = jref.wkv6_ref(*(jnp.asarray(_bhsk(a)) for a in (r, k, v, w)),
+                         jnp.asarray(u), jnp.asarray(s0))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4,
+                                   rtol=2e-4)
+
+
+def test_wkv6_state_carry_composes():
+    """Two halves with the state carried == the whole sequence (the
+    chunked-prefill invariant for recurrent layers)."""
+    r, k, v, w, u, s0 = map(_t, _wkv_inputs(1, 32, 2, 16, seed=7))
+    y_full, sT_full = tops.wkv6_op(r, k, v, w, u, s0)
+    y1, s_mid = tops.wkv6_op(r[:, :16], k[:, :16], v[:, :16], w[:, :16], u,
+                             s0)
+    y2, sT = tops.wkv6_op(r[:, 16:], k[:, 16:], v[:, 16:], w[:, 16:], u,
+                          s_mid)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(),
+                               y_full.numpy(), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(sT.numpy(), sT_full.numpy(), atol=2e-4,
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,h,k", [(1, 1, 1, 8), (2, 7, 2, 16),
+                                     (3, 10, 1, 16), (1, 5, 2, 8)])
+def test_wkv6_zero_key_is_identity(b, s, h, k):
+    """k = 0 writes nothing: the state is the decayed initial state, as in
+    the reference's and its kernel's (tests/test_properties.py)."""
+    rng = np.random.RandomState(b * s)
+    r = rng.randn(b, s, h, k).astype(np.float32)
+    kk = np.zeros((b, s, h, k), np.float32)
+    v = rng.randn(b, s, h, k).astype(np.float32)
+    w = np.full((b, s, h, k), 0.5, np.float32)
+    u = rng.randn(h, k).astype(np.float32)
+    s0 = rng.randn(b, h, k, k).astype(np.float32)
+    _, sT = tops.wkv6_op(*map(_t, (r, kk, v, w, u, s0)))
+    np.testing.assert_allclose(sT.numpy(), s0 * 0.5 ** s, atol=1e-4,
+                               rtol=1e-4)
+    _, jsT = jops.wkv6_op(*map(jnp.asarray, (r, kk, v, w, u, s0)))
+    np.testing.assert_allclose(sT.numpy(), np.asarray(jsT), atol=1e-4,
+                               rtol=1e-4)

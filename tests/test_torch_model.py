@@ -87,8 +87,9 @@ def test_chunked_prefill_matches_whole_prompt(pair):
 
 
 def test_plain_attention_path_matches_kernel_path(pair):
-    """prefill's masked _sdpa option (what chip_smoke.py holds the kernels'
-    logits against on the card) equals the kernel-wrapper path."""
+    """prefill's plain-kernels option (the masked _sdpa: what chip_smoke.py
+    holds the kernels' logits against on the card) equals the
+    kernel-wrapper path."""
     cfg, model, _, _ = pair
     rng = np.random.RandomState(2)
     toks = rng.randint(0, cfg.vocab_size, size=(2, 8)).astype(np.int32)
@@ -96,7 +97,7 @@ def test_plain_attention_path_matches_kernel_path(pair):
     a, _ = tm.prefill(cfg, model, tm.init_state(cfg, 2, 16, "cpu"), toks,
                       lens)
     b, _ = tm.prefill(cfg, model, tm.init_state(cfg, 2, 16, "cpu"), toks,
-                      lens, plain_attention=True)
+                      lens, plain_kernels=True)
     _close(a, b)
 
 

@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b"])
+@pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b", "rwkv6_3b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(arch, smoke):
     assert dataclasses.asdict(get_config(arch, smoke)) \
