@@ -8,15 +8,19 @@ Phases (any failure exits non-zero; nothing is skipped):
   2. parity  — each kernel against its plain PyTorch version on the card:
                attention at Llama-3.1-8B heads at the main-path shapes in
                bf16 (3e-2, and 2e-5 + 2 bf16 steps of the plain value) and
-               f32 (2e-5), the f32 sweeps (2e-5), NaN in the decode kernel's
-               dead region; the paged kernel on the reference's cases (f32,
-               2e-5), on interleaved pages at Llama heads (bf16 and f32, and
-               against the contiguous decode kernel on the gathered KV) and
-               under NaN in foreign pages; WKV6 (f32, 2e-4) on the
-               reference's sweep, the state carry and RWKV-6 3B heads with
-               model-like decays.  Then times at the main-path shapes beside
-               the bound, the plain version and, where one torch call
-               computes the same function, that call (a yardstick only)
+               f32 (2e-5), the split-KV decode kernel also against its plain
+               split-and-merge version and bit-equal to itself, the f32
+               sweeps (2e-5), NaN in the decode kernel's dead region; the
+               paged kernel on the reference's cases (f32, 2e-5), on
+               interleaved pages at Llama heads (bf16 and f32, and bit-equal
+               to the contiguous decode kernel on the gathered KV) and under
+               NaN in foreign pages; WKV6 (f32, 2e-4) on the reference's
+               sweep, the state carry and RWKV-6 3B heads with model-like
+               decays.  Then times at the main-path shapes beside the bound,
+               the plain version and, where one torch call computes the same
+               function, that call (a yardstick only): kernels and that call
+               by CUDA-graph replay (eager figure and host enqueue beside),
+               the plain versions eagerly
   3. serve   — Llama-3.1-8B at its published widths (random weights from a
                seed, bf16) served PD-disaggregated by PDCluster (prefiller,
                decoder, convertible decoder), then a convertible Engine
@@ -73,11 +77,14 @@ PREFILL_SWEEP = [                        # tests/test_kernels.py SWEEP + G=5
     (1, 128, 128, 8, 8, 32, 0, 0.0), (3, 17, 33, 6, 1, 64, 0, 0.0),
     (1, 256, 384, 2, 2, 128, 64, 50.0), (2, 9, 40, 10, 2, 64, 0, 0.0),
 ]
-DECODE_SWEEP = [                         # its decode sweep + softcap, G=5
+# its decode sweep + softcap, G=5; windows inside one split and across
+# splits; one request of 8192 positions (64 splits)
+DECODE_SWEEP = [
     (1, 16, 1, 1, 16, 0, 0.0), (2, 64, 8, 2, 64, 0, 0.0),
     (2, 64, 8, 2, 64, 16, 0.0), (2, 64, 8, 2, 64, 0, 30.0),
     (4, 129, 4, 1, 128, 0, 0.0), (1, 512, 16, 16, 64, 0, 0.0),
-    (3, 96, 10, 2, 128, 0, 50.0),
+    (3, 96, 10, 2, 128, 0, 50.0), (3, 192, 8, 2, 32, 20, 0.0),
+    (2, 256, 8, 2, 32, 100, 0.0), (1, 8192, 32, 8, 128, 0, 0.0),
 ]
 
 
@@ -147,20 +154,60 @@ def _bound(ops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(fn, arg_sets, iters=20):
-    """Mean ms per call over CUDA events, cycling through `arg_sets` (held
-    large enough together to exceed the 50 MB L2, so inputs come cold)."""
+def time_ms(fn, arg_sets, iters=20, graph=True, reps=5):
+    """Ms per call of `iters` calls cycling through `arg_sets` (held large
+    enough together to exceed the 50 MB L2, so inputs come cold).
+
+    With `graph`, the calls are captured once in a torch.cuda.CUDAGraph and
+    the graph is replayed `reps` times between CUDA events: the device's
+    time, without the host's enqueue (ctypes, allocation), which at tens of
+    us per call can exceed a kernel's.  A capture that fails raises.  Also
+    returned: the same calls timed eagerly between CUDA events, and the
+    host's enqueue time per call.  Returns {"ms", "eager_ms", "host_us"};
+    without `graph` (the plain versions, which copy from the host and cannot
+    be captured), "ms" is the eager figure."""
     for a in arg_sets[:3]:
         fn(*a)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    h = time.perf_counter()
     t0.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
     t1.record()
+    host_us = (time.perf_counter() - h) / iters * 1e6
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    out = dict(ms=t0.elapsed_time(t1) / iters, host_us=host_us)
+    out["eager_ms"] = out["ms"]
+    if not graph:
+        return out
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm up off the capture
+        for a in arg_sets[:3]:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    g.replay()
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    out["ms"] = t0.elapsed_time(t1) / (reps * iters)
+    del g
+    return out
+
+
+def i32(values):
+    """A device int32 tensor: what the kernels take, so the timed calls
+    launch no conversion kernel."""
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
 
 
 def n_copies(nbytes):
@@ -263,9 +310,17 @@ def phase_parity():
         q = _rand(g, (4, 32, 128), dt)
         k, v = _rand(g, (4, 2048, 8, 128), dt), _rand(g, (4, 2048, 8, 128), dt)
         cur = torch.tensor([0, 700, 1500, 2047], device=dev)
+        out = kops.decode_attention_op(q, k, v, cur)
         ok &= judge("decode_attention", "B=4 L=2048 cur=[0,700,1500,2047]",
-                    dt, kops.decode_attention_op(q, k, v, cur),
-                    ref.decode_attention_ref(q, k, v, cur))
+                    dt, out, ref.decode_attention_ref(q, k, v, cur))
+        split, nsplit = kops.decode_split(2048, 4, 8)
+        ok &= judge("decode_attention", f"the same vs the plain split-and-"
+                    f"merge version ({nsplit} splits of {split})", dt, out,
+                    ref.decode_attention_split_ref(q, k, v, cur, split))
+        same = bool(torch.equal(out, kops.decode_attention_op(q, k, v, cur)))
+        ok &= same
+        log(f"[parity] decode_attention {'bf16' if dt == bf else 'f32'}: two "
+            f"calls bit-equal: {same}")
 
     # the f32 sweeps of the reference's kernel tests
     worst = 0.0
@@ -328,31 +383,32 @@ def phase_parity():
     for _ in range(n_copies(set_bytes)):
         q = _rand(g, (1, Sq, 32, 128), bf)
         k, v = _rand(g, (1, 2048, 8, 128), bf), _rand(g, (1, 2048, 8, 128), bf)
-        sets.append((q, k, v, torch.tensor([off], device=dev),
-                     torch.tensor([n], device=dev)))
+        sets.append((q, k, v, i32([off]), i32([n])))
     mask = (torch.arange(2048, device=dev)[None, :]
             <= torch.arange(Sq, device=dev)[:, None] + off) \
         & (torch.arange(2048, device=dev)[None, :] < n)
     sdpa_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   mask[None, None]) for q, k, v, _, _ in sets]
-    rows["chunked_prefill_attention"] = dict(
-        ms=time_ms(kops.prefill_attention, sets),
-        plain_ms=time_ms(ref.chunked_prefill_attention_ref, sets),
-        library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=m, enable_gqa=True), sdpa_sets),
+    rows["chunked_prefill_attention"] = timed_row(
+        kops.prefill_attention, ref.chunked_prefill_attention_ref, sets,
+        lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), sdpa_sets,
         bound=prefill_bound(sets[0][0], sets[0][1], [off], [n], 0),
         shape="B=1 Sq=512 Skv=2048 Hq=32 Hkv=8 D=128 bf16, offset 0, len 512")
     # the convertible chunk, for the record
     Sq2, off2, n2 = main_inputs["convertible chunk Sq=256 off=768 len=1024"]
-    csets = [(q[:, :Sq2].contiguous(), k, v, torch.tensor([off2], device=dev),
-              torch.tensor([n2], device=dev)) for q, k, v, _, _ in sets]
-    chunk_ms = time_ms(kops.prefill_attention, csets)
-    chunk_plain = time_ms(ref.chunked_prefill_attention_ref, csets)
+    csets = [(q[:, :Sq2].contiguous(), k, v, i32([off2]), i32([n2]))
+             for q, k, v, _, _ in sets]
+    chunk = time_ms(kops.prefill_attention, csets)
+    chunk_plain = time_ms(ref.chunked_prefill_attention_ref, csets,
+                          graph=False)["ms"]
     cb, cby = prefill_bound(csets[0][0], k, [off2], [n2], 0)
-    log(f"[time] prefill kernel, chunk Sq=256 off=768 len=1024: {chunk_ms:.4f}"
-        f" ms; plain {chunk_plain:.4f} ms; bound {cb:.4f} ms ({cby})")
+    log(f"[time] prefill kernel, chunk Sq=256 off=768 len=1024: "
+        f"{chunk['ms']:.4f} ms (graph; eager {chunk['eager_ms']:.4f} ms, "
+        f"host {chunk['host_us']:.1f} us/call); plain {chunk_plain:.4f} ms; "
+        f"bound {cb:.4f} ms ({cby})")
 
-    curs = torch.tensor([0, 700, 1500, 2047], device=dev)
+    curs = i32(DECODE_CUR)
     dsets = []
     for _ in range(n_copies(4 * 2048 * 8 * 128 * 2 * 2)):
         q = _rand(g, (4, 32, 128), bf)
@@ -361,23 +417,60 @@ def phase_parity():
     dmask = (torch.arange(2048, device=dev)[None, :] <= curs[:, None])
     sdpa_d = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                dmask[:, None, None]) for q, k, v, _ in dsets]
-    rows["decode_attention"] = dict(
-        ms=time_ms(kops.decode_attention_op, dsets),
-        plain_ms=time_ms(ref.decode_attention_ref, dsets),
-        library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=m, enable_gqa=True), sdpa_d),
-        bound=decode_bound(dsets[0][0], dsets[0][1], curs.tolist(), 0),
+    rows["decode_attention"] = timed_row(
+        kops.decode_attention_op, ref.decode_attention_ref, dsets,
+        lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), sdpa_d,
+        bound=decode_bound(dsets[0][0], dsets[0][1], DECODE_CUR, 0),
         shape="B=4 L=2048 Hq=32 Hkv=8 D=128 bf16, cur_lens 0/700/1500/2047")
+    log(f"[time] decode_attention device us per call by kernel "
+        f"(torch.profiler): "
+        f"{device_us_by_kernel(kops.decode_attention_op, dsets)}")
     errs["paged_decode_attention"], rows["paged_decode_attention"] = \
         parity_paged(g)
     errs["wkv6"], rows["wkv6"] = parity_wkv6(g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
-        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms; "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); plain "
-            f"{r['plain_ms']:.4f} ms; library {lib}")
+            f"{r['library_ms']:.4f} ms (eager {r['library_eager_ms']:.4f})"
+        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms "
+            f"(graph; eager {r['eager_ms']:.4f} ms, host {r['host_us']:.1f} "
+            f"us/call); bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{r['bound'][0] / r['ms']:.3f} of it; plain {r['plain_ms']:.4f}"
+            f" ms (eager); library {lib}")
     return errs, rows
+
+
+def device_us_by_kernel(fn, arg_sets, calls=20):
+    """Device microseconds per call of each kernel `fn` launches, from
+    torch.profiler (CUPTI) over `calls` eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for a in arg_sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("<")[0].split("::")[-1]
+            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return {k: round(v, 2) for k, v in us.items()}
+
+
+def timed_row(kernel, plain, sets, library=None, library_sets=None, **row):
+    """One row of the kernels line: the kernel and the library call timed
+    from a CUDA graph (with their eager figures), the plain version eagerly,
+    all on the same inputs."""
+    k = time_ms(kernel, sets)
+    row.update(ms=k["ms"], eager_ms=k["eager_ms"], host_us=k["host_us"],
+               plain_ms=time_ms(plain, sets, graph=False)["ms"],
+               library_ms=None, library_eager_ms=None)
+    if library is not None:
+        lib = time_ms(library, library_sets)
+        row.update(library_ms=lib["ms"], library_eager_ms=lib["eager_ms"])
+    return row
 
 
 def interleaved_tables(lens, n_blocks, max_blocks):
@@ -440,8 +533,10 @@ def parity_paged(g):
         contiguous = kops.decode_attention_op(
             q, pk[safe].reshape(4, -1, 8, 128),
             pv[safe].reshape(4, -1, 8, 128), cur)
-        for label, w in (("plain", want), ("contiguous decode kernel",
-                                           contiguous)):
+        split, _ = kops.decode_split(16 * 128, 4, 8, 128)
+        for label, w in (("plain", want), ("plain split-and-merge",
+                         ref.paged_decode_attention_split_ref(
+                             q, pk, pv, tables, cur, split))):
             e, good = max_err(out, w), close(out, w, TOL[dt])
             note = f"max_abs_err {e:.3g} (tol {TOL[dt]})"
             if dt == bf:
@@ -454,6 +549,10 @@ def parity_paged(g):
             log(f"[parity] paged {'bf16' if dt == bf else 'f32'} B=4 "
                 f"cur={DECODE_CUR} interleaved pages vs {label}: {note} "
                 f"{'ok' if good else 'FAIL'}")
+        same = bool(torch.equal(out, contiguous))
+        ok &= same
+        log(f"[parity] paged {'bf16' if dt == bf else 'f32'}: bit-equal to "
+            f"the contiguous decode kernel on the gathered KV: {same}")
     clean = kops.paged_decode_attention(q, pk, pv, tables, cur)
     used = set(tables[tables >= 0].tolist())
     foreign = [i for i in range(pk.shape[0]) if i not in used]
@@ -468,20 +567,23 @@ def parity_paged(g):
 
     sets, sdpa = [], []
     mask = (torch.arange(16 * 128, device=dev)[None, :] <= cur[:, None])
+    tables32, cur32 = tables.to(torch.int32), i32(DECODE_CUR)
     for _ in range(n_copies(2 * 40 * 128 * 8 * 128 * 2)):
         q = _rand(g, (4, 32, 128), bf)
         pk, pv = _rand(g, (40, 128, 8, 128), bf), _rand(g, (40, 128, 8, 128), bf)
-        sets.append((q, pk, pv, tables, cur))
+        sets.append((q, pk, pv, tables32, cur32))
         sdpa.append((q[:, :, None],
                      pk[safe].reshape(4, -1, 8, 128).transpose(1, 2),
                      pv[safe].reshape(4, -1, 8, 128).transpose(1, 2),
                      mask[:, None, None]))
     gathered = sdpa[0][1].transpose(1, 2)
-    return err, dict(
-        ms=time_ms(kops.paged_decode_attention, sets),
-        plain_ms=time_ms(ref.paged_decode_attention_ref, sets),
-        library_ms=time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=m, enable_gqa=True), sdpa),
+    log(f"[time] paged_decode_attention device us per call by kernel "
+        f"(torch.profiler): "
+        f"{device_us_by_kernel(kops.paged_decode_attention, sets)}")
+    return err, timed_row(
+        kops.paged_decode_attention, ref.paged_decode_attention_ref, sets,
+        lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), sdpa,
         bound=decode_bound(sets[0][0], gathered, DECODE_CUR, 0),
         shape="B=4 Hq=32 Hkv=8 D=128 bf16, 128-token pages interleaved, "
               "cur_lens 0/700/1500/2047")
@@ -558,10 +660,8 @@ def parity_wkv6(g):
 
     sets = [_wkv_inputs(g, 1, 1024, 40, 64, model_decay=True, s0_zero=True)
             for _ in range(n_copies(5 * 1024 * 40 * 64 * 4))]
-    return worst, dict(
-        ms=time_ms(kops.wkv6_op, sets),
-        plain_ms=time_ms(ref.wkv6_chunked, sets),
-        library_ms=None,               # no single torch call computes WKV6
+    return worst, timed_row(           # no single torch call computes WKV6
+        kops.wkv6_op, ref.wkv6_chunked, sets,
         bound=wkv6_bound(1, 1024, 40, 64, 16),
         shape="B=1 S=1024 H=40 K=64 f32, chunk 16")
 
@@ -744,13 +844,14 @@ def phase_paged():
     # ... to here
     path_ms = 1e3 * (time.perf_counter() - t0)
     safe = tables.clamp(min=0).long()
-    worst, share = 0.0, 0.0
+    worst, share, equal = 0.0, 0.0, True
     for l, out in enumerate(outs):
         want = kops.decode_attention_op(
             q[l], kv.pool_k[l][safe].reshape(4, -1, Hkv, D),
             kv.pool_v[l][safe].reshape(4, -1, Hkv, D), cur)
         worst = max(worst, max_err(out, want))
         share = max(share, bf16_bound_share(out, want))
+        equal &= bool(torch.equal(out, want))
     scattered = all(not (np.diff(t[t >= 0]) == 1).all()
                     for t in kv.tables if (t >= 0).sum() > 1)
     log(f"[paged] {kv.alloc.num_blocks - kv.alloc.n_free} pages of "
@@ -760,12 +861,12 @@ def phase_paged():
         f"(allocation and writes included), launches {launches}; vs the "
         f"contiguous decode kernel: max_abs_err {worst:.3g} (tol "
         f"{TOL[torch.bfloat16]}), {share:.3g} of the 2e-5 + 2 bf16 steps "
-        f"bound")
+        f"bound; bit-equal: {equal}")
     for slot in range(4):
         kv.release(slot, rid=slot)
     check(scattered, "the allocator gave a request contiguous pages")
     check(launches == nL, f"paged launches {launches}")
-    check(worst <= TOL[torch.bfloat16] and share <= 1,
+    check(worst <= TOL[torch.bfloat16] and share <= 1 and equal,
           "paged path disagrees with the contiguous decode kernel")
     check(kv.alloc.n_free == kv.alloc.num_blocks, "pages not released")
     return launches
@@ -864,15 +965,17 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kinds = {"attention": 0.0, "wkv6": 0.0, "matmul": 0.0, "other": 0.0}
-    n = 0
+    n = n_attn = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name.lower()
         us = e.time_range.elapsed_us()
         n += 1
-        if "decode_kernel" in name or "prefill_kernel" in name:
+        if any(w in name for w in ("decode_split_kernel", "prefill_kernel",
+                                   "decode_combine_kernel")):
             kinds["attention"] += us
+            n_attn += 1
         elif "wkv6_kernel" in name:
             kinds["wkv6"] += us
         elif any(w in name for w in ("gemm", "gemv", "xmma", "nvjet",
@@ -888,8 +991,8 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
     per = {k: round(v / steps / 1e3, 3) for k, v in kinds.items()}
     log(f"[profile] {cfg.name} decode step at B=4, ctx~{ctx}: wall "
         f"{wall_us / steps / 1e3:.2f} ms/step; device ms/step by kind {per};"
-        f" {n / steps:.0f} kernels/step; device idle share "
-        f"{1 - busy / wall_us:.3f}")
+        f" {n / steps:.0f} kernels/step ({n_attn / steps:.0f} attention); "
+        f"device idle share {1 - busy / wall_us:.3f}")
 
 
 def phase_exact():

@@ -31,14 +31,14 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "chunked_prefill_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _F, _P],
-    # dtype, q, k, v, cur_lens, out, B, L, Hq, Hkv, D, window, softcap,
-    # scale, stream
-    "decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _F, _P],
-    # dtype, q, pool_k, pool_v, tables, cur_lens, out, B, MB, BS, Hq, Hkv,
-    # D, scale, stream
-    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+    # dtype, q, k, v, cur_lens, out, part_o, part_ml, B, L, Hq, Hkv, D,
+    # window, softcap, scale, split, stream
+    "decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _I, _P],
+    # dtype, q, pool_k, pool_v, tables, cur_lens, out, part_o, part_ml, B,
+    # MB, BS, Hq, Hkv, D, scale, split, stream
+    "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _F, _I, _P],
     # r, k, v, w, u, s0, y, sT, B, S, H, K, chunk, stream
     "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

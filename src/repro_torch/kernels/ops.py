@@ -11,6 +11,7 @@ can show that it went through the kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -88,9 +89,58 @@ def prefill_attention(q, k, v, offset, lengths, window: int = 0,
     return out
 
 
+# The decode kernels' split rule (csrc/decode_common.cuh).  Splits are
+# powers of two times SPLIT_QUANTUM positions (a multiple of every tile),
+# at most SPLIT_MAX, and as short as it takes to give BLOCKS_WANTED blocks:
+# about four per SM of an H100 before the blocks whose split misses the live
+# range return.
+SPLIT_QUANTUM = 64
+SPLIT_MAX = 2048
+BLOCKS_WANTED = 4 * 132
+
+
+def decode_split(positions: int, B: int, Hkv: int,
+                 block_size: int = 1) -> tuple[int, int]:
+    """(split, nsplit) for `positions` cache positions (L, or MB * BS pages'
+    worth), B requests and Hkv kv heads; with pages of `block_size`, the
+    split is a whole number of pages.  It depends on the shapes alone: the
+    host never reads cur_lens, which lives on the device.  Both decode
+    kernels use this rule, so over the same positions they cut the keys
+    alike."""
+    want = -(-BLOCKS_WANTED // max(B * Hkv, 1))
+    raw = -(-max(positions, 1) // want)
+    split = SPLIT_QUANTUM
+    while split < min(raw, SPLIT_MAX):
+        split *= 2
+    grain = math.lcm(SPLIT_QUANTUM, block_size)
+    split = -(-split // grain) * grain
+    if split > SPLIT_MAX:
+        raise ValueError(f"pages of {block_size} positions do not fit a "
+                         f"split of at most {SPLIT_MAX}")
+    return split, -(-max(positions, 1) // split)
+
+
+def _partials(rows: int, nsplit: int, D: int, device):
+    """Scratch for the split pass, f32: the partial o (rows, nsplit, D)
+    followed by m, l (rows, nsplit, 2).  None with one split, whose block
+    writes the output itself.  Returns (tensor, o pointer, m/l pointer);
+    the caller holds the tensor across the launch, and the caching
+    allocator reuses its memory only after the kernels on that stream."""
+    if nsplit == 1:
+        return None, 0, 0
+    ws = torch.empty(rows * nsplit * (D + 2), dtype=torch.float32,
+                     device=device)
+    return ws, ws.data_ptr(), ws.data_ptr() + 4 * rows * nsplit * D
+
+
 def decode_attention_op(q, k, v, cur_lens, window: int = 0,
                         softcap: float = 0.0, scale: Optional[float] = None):
-    """(B,Hq,D) single-token decode against a (B,L,Hkv,D) cache."""
+    """(B,Hq,D) single-token decode against a (B,L,Hkv,D) cache.
+
+    On the card: split-KV, one block per (kv head, request, split of
+    ``decode_split(L, B, Hkv)`` positions), then a combine pass when there
+    is more than one split; the partials go to scratch of
+    B * Hq * nsplit * (D + 2) floats from ``torch.empty``."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, cur_lens, window=window,
                                         softcap=softcap, scale=scale)
@@ -102,11 +152,14 @@ def decode_attention_op(q, k, v, cur_lens, window: int = 0,
     _check_cuda(q, k, v)
     scale = scale if scale is not None else D ** -0.5
     cur_lens = _int32(cur_lens, q.device)
+    split, nsplit = decode_split(L, B, Hkv)
     out = torch.empty_like(q)
+    ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
     fn = build.lib("decode_attention").decode_attention
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             cur_lens.data_ptr(), out.data_ptr(), B, L, Hq, Hkv, D,
-             int(window), float(softcap), float(scale), _stream(q))
+             cur_lens.data_ptr(), out.data_ptr(), part_o, part_ml, B, L, Hq,
+             Hkv, D, int(window), float(softcap), float(scale), split,
+             _stream(q))
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
@@ -116,7 +169,11 @@ def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
                            scale: Optional[float] = None):
     """(B,Hq,D) single-token decode against a shared (NB,BS,Hkv,D) page
     pool through per-request block tables (B, MB) of page ids below NB,
-    -1 = unallocated."""
+    -1 = unallocated.
+
+    On the card: the decode kernel's split-KV blocks over splits of
+    ``decode_split(MB * BS, B, Hkv, BS)`` positions (whole pages), then the
+    combine pass; scratch as ``decode_attention_op``'s."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, pool_k, pool_v, tables,
                                               cur_lens, scale=scale)
@@ -129,12 +186,15 @@ def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
     _check_cuda(q, pool_k, pool_v)
     scale = scale if scale is not None else D ** -0.5
     tables, cur_lens = _int32(tables, q.device), _int32(cur_lens, q.device)
+    MB = tables.shape[1]
+    split, nsplit = decode_split(MB * BS, B, Hkv, BS)
     out = torch.empty_like(q)
+    ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
     fn = build.lib("paged_decode_attention").paged_decode_attention
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
              pool_v.data_ptr(), tables.data_ptr(), cur_lens.data_ptr(),
-             out.data_ptr(), B, tables.shape[1], BS, Hq, Hkv, D,
-             float(scale), _stream(q))
+             out.data_ptr(), part_o, part_ml, B, MB, BS, Hq, Hkv, D,
+             float(scale), split, _stream(q))
     _raise_on(err, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out

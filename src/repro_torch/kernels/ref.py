@@ -4,7 +4,9 @@ The attention functions are the reference package's ``kernels/ref.py``
 oracles written in PyTorch: the same masks, the same finite ``NEG_INF``
 sentinel (so a row with no visible key softmaxes to a uniform average,
 exactly as there), f32 arithmetic, output in the input's dtype.  The paged
-one is the batched form of ``serving/paged.py``'s oracle.  ``wkv6_ref`` is
+one is the batched form of ``serving/paged.py``'s oracle; the two
+``*_split_ref`` functions compute the same decode attention in the split-KV
+kernels' two passes, for the tests.  ``wkv6_ref`` is
 the sequential RWKV-6 oracle and ``wkv6_chunked`` the reference model's
 chunked form of it (``models/ops.py: rwkv_wkv_chunked``).  The CPU path of
 every wrapper in ``kernels/ops.py`` runs these; on the card they are what
@@ -123,6 +125,92 @@ def paged_decode_attention_ref(
     v = torch.where(valid[:, :, None, None], v, 0.0)
     o = torch.einsum("bkgl,blkd->bkgd", p, v)
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _split_merge(s, v, live, lo, hi, split, dtype):
+    """The decode kernels' two passes in plain PyTorch.
+
+    s (B, Hkv, G, P) scores, v (B, P, Hkv, D) f32 with dead rows zeroed,
+    live (B, P), lo/hi (B,) the live range.  Pass 1: per split of `split`
+    positions, the partial (o, m, l) over its live keys.  Pass 2: the
+    log-sum-exp merge of the splits that meet [lo, hi], in split order
+    (nothing meets when lo > hi: the output is 0, as the plain versions
+    give when no key is visible)."""
+    B, Hkv, G, P = s.shape
+    D = v.shape[-1]
+    nsplit = -(-P // split)
+    pad = nsplit * split - P
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    live = torch.nn.functional.pad(live, (0, pad), value=False)
+    live = live.reshape(B, 1, 1, nsplit, split)
+    s = torch.where(live, s.reshape(B, Hkv, G, nsplit, split), NEG_INF)
+    m = s.amax(-1)                                       # (B, Hkv, G, n)
+    p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bkgns,bnskd->bkgnd", p,
+                     v.reshape(B, nsplit, split, Hkv, D))
+    idx = torch.arange(nsplit, device=s.device)
+    meet = (idx[None] >= (lo // split)[:, None]) \
+        & (idx[None] <= (hi // split)[:, None]) & (lo <= hi)[:, None]
+    meet = meet[:, None, None]                           # (B, 1, 1, n)
+    M = torch.where(meet, m, NEG_INF).amax(-1)
+    O = torch.zeros(B, Hkv, G, D, device=s.device)
+    Ls = torch.zeros(B, Hkv, G, device=s.device)
+    for i in range(nsplit):
+        c = torch.where(meet[..., i], torch.exp(m[..., i] - M), 0.0)
+        Ls = Ls + l[..., i] * c
+        O = O + o[..., i, :] * c[..., None]
+    out = O / Ls.clamp(min=1e-30)[..., None]
+    return out.reshape(B, Hkv * G, D).to(dtype)
+
+
+def decode_attention_split_ref(q, k, v, cur_lens, split: int,
+                               window: int = 0, softcap: float = 0.0,
+                               scale: Optional[float] = None):
+    """``decode_attention_ref`` computed as the split-KV kernel computes it:
+    partials per split of `split` positions, then the merge.  For the
+    tests; no serving path calls it."""
+    B, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bkgd,blkd->bkgl", q.reshape(B, Hkv, Hq // Hkv, D).float(),
+                     k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    cur = cur_lens.to(q.device).long()
+    hi = cur.clamp(max=L - 1)
+    lo = (cur - window + 1).clamp(min=0) if window else torch.zeros_like(cur)
+    pos = torch.arange(L, device=q.device)[None]
+    live = (pos >= lo[:, None]) & (pos <= hi[:, None])
+    vf = torch.where(live[:, :, None, None], v.float(), 0.0)
+    return _split_merge(s, vf, live, lo, hi, split, q.dtype)
+
+
+def paged_decode_attention_split_ref(q, pool_k, pool_v, tables, cur_lens,
+                                     split: int,
+                                     scale: Optional[float] = None):
+    """``paged_decode_attention_ref`` computed as the split-KV kernel
+    computes it (splits of `split` positions, whole pages).  For the tests;
+    no serving path calls it."""
+    B, Hq, D = q.shape
+    BS, Hkv = pool_k.shape[1], pool_k.shape[2]
+    MB = tables.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    tables = tables.to(dev).long()
+    safe = tables.clamp(min=0)
+    k = pool_k[safe].reshape(B, MB * BS, Hkv, D).float()
+    v = pool_v[safe].reshape(B, MB * BS, Hkv, D).float()
+    cur = cur_lens.to(dev).long()
+    hi = cur.clamp(max=MB * BS - 1)
+    pos = torch.arange(MB * BS, device=dev)[None]
+    live = (pos <= hi[:, None]) & (tables.repeat_interleave(BS, dim=1) >= 0)
+    s = torch.einsum("bkgd,blkd->bkgl",
+                     q.reshape(B, Hkv, Hq // Hkv, D).float(), k) * scale
+    v = torch.where(live[:, :, None, None], v, 0.0)
+    return _split_merge(s, v, live, torch.zeros_like(cur), hi, split,
+                        q.dtype)
 
 
 def wkv6_ref(r, k, v, w, u, s0):

@@ -41,7 +41,26 @@ DECODE_SWEEP = [
     (4, 129, 4, 1, 128, 0, 0.0),
     (1, 512, 16, 16, 64, 0, 0.0),
     (3, 96, 10, 2, 128, 0, 50.0),
+    (3, 192, 8, 2, 32, 20, 0.0),         # a window inside one split
+    (2, 256, 8, 2, 32, 100, 0.0),        # a window across splits
+    (1, 8192, 32, 8, 128, 0, 0.0),       # one long request: 64 splits
 ]
+# Explicit cur_lens against the splits the wrapper picks (64 positions at
+# these shapes): the same cases as tests/test_torch_split_decode.py.
+DECODE_SPLIT_CASES = {
+    # id: (L, Hq, Hkv, D, window, softcap, cur_lens)
+    "boundary-at-cur-1-cur-cur+1": (192, 8, 2, 32, 0, 0.0, [65, 64, 63]),
+    "cur-0": (128, 4, 1, 16, 0, 0.0, [0, 0]),
+    "window-inside-one-split": (256, 8, 2, 32, 20, 0.0, [100, 140]),
+    "window-spans-two-splits": (256, 8, 2, 32, 50, 0.0, [80, 200]),
+    "window-boundary-at-start": (256, 4, 2, 16, 37, 0.0, [100, 63]),
+    "no-visible-key": (128, 4, 2, 16, 16, 0.0, [127, 143]),
+    "L-not-a-multiple": (150, 8, 2, 64, 0, 0.0, [149, 70, 128]),
+    "single-split": (48, 4, 2, 32, 0, 30.0, [47, 12]),
+    "group-of-5-qwen": (160, 40, 8, 16, 0, 0.0, [159, 64, 3]),
+    "group-of-12": (256, 24, 2, 64, 0, 0.0, [255, 100]),
+    "softcap-window-many": (512, 8, 2, 32, 100, 50.0, [511, 300, 10]),
+}
 
 
 @pytest.fixture
@@ -139,6 +158,31 @@ def test_decode_kernel_f32(cuda, B, L, Hq, Hkv, D, window, cap):
            2e-5)
 
 
+@pytest.mark.parametrize("case", list(DECODE_SPLIT_CASES))
+def test_decode_kernel_split_cases(cuda, case):
+    """Split boundaries at cur - 1, cur and cur + 1, windows that start
+    inside a split or span two, cur = 0, a ragged last split, one split,
+    groups of 5 and 12: the kernel against the plain version and the plain
+    split-and-merge version, and bit-equal to itself."""
+    L, Hq, Hkv, D, window, cap, curs = DECODE_SPLIT_CASES[case]
+    B = len(curs)
+    g = torch.Generator(device=cuda).manual_seed(L + Hq)
+    q = _randn(g, B, Hq, D)
+    k, v = _randn(g, B, L, Hkv, D), _randn(g, B, L, Hkv, D)
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    out = kops.decode_attention_op(q, k, v, cur, window=window, softcap=cap)
+    split, _ = kops.decode_split(L, B, Hkv)
+    _close(out, ref.decode_attention_ref(q, k, v, cur, window=window,
+                                         softcap=cap), 2e-5)
+    _close(out, ref.decode_attention_split_ref(q, k, v, cur, split,
+                                               window=window, softcap=cap),
+           2e-5)
+    again = kops.decode_attention_op(q, k, v, cur, window=window,
+                                     softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 def _main_path_decode(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     q = _randn(g, 4, 32, 128, dtype=dtype)
@@ -158,6 +202,29 @@ def test_decode_kernel_bf16_main_path(cuda):
 def test_decode_kernel_f32_main_path(cuda):
     out, want = _main_path_decode(cuda, torch.float32)
     _close(out, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_main_path_split_and_deterministic(cuda, dtype):
+    """The main-path shape runs 16 splits and the combine pass: it matches
+    the plain split-and-merge version, and two calls are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(g, 4, 32, 128, dtype=dtype)
+    k = _randn(g, 4, 2048, 8, 128, dtype=dtype)
+    v = _randn(g, 4, 2048, 8, 128, dtype=dtype)
+    cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
+    split, nsplit = kops.decode_split(2048, 4, 8)
+    assert nsplit > 1
+    out = kops.decode_attention_op(q, k, v, cur)
+    want = ref.decode_attention_split_ref(q, k, v, cur, split)
+    if dtype == torch.bfloat16:
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+    else:
+        _close(out, want, 2e-5)
+    again = kops.decode_attention_op(q, k, v, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_decode_kernel_never_reads_dead_region(cuda):
@@ -379,10 +446,52 @@ def test_paged_kernel_reference_cases(cuda, B, MB, NB, BS, Hq, Hkv, D):
            ref.paged_decode_attention_ref(q, pk, pv, tables, cur), 2e-5)
 
 
+PAGED_SPLIT_CASES = {
+    # id: (BS, MB, NB, Hq, Hkv, D, cur_lens, holes): the cases of
+    # tests/test_torch_split_decode.py; holes (request, table slot) are -1
+    # pages inside the live range
+    "bs16-hole": (16, 8, 20, 4, 2, 16, [100, 40], [(0, 2)]),
+    "bs32-hole-split-edge": (32, 6, 16, 8, 2, 32, [130, 63, 64],
+                             [(0, 1), (2, 0)]),
+    "bs128-hole": (128, 3, 8, 4, 1, 16, [300, 127], [(0, 1)]),
+    "bs16-group-of-5": (16, 6, 16, 10, 2, 16, [95, 17], []),
+    "bs16-every-live-page-a-hole": (16, 4, 8, 4, 2, 32, [20, 40],
+                                    [(0, 0), (0, 1)]),
+}
+
+
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_kernel_split_cases(cuda, case):
+    BS, MB, NB, Hq, Hkv, D, curs, holes = PAGED_SPLIT_CASES[case]
+    B = len(curs)
+    g = torch.Generator(device=cuda).manual_seed(BS + MB)
+    pk, pv = _randn(g, NB, BS, Hkv, D), _randn(g, NB, BS, Hkv, D)
+    perm = torch.randperm(NB, generator=g, device=cuda)
+    tables = torch.full((B, MB), -1, dtype=torch.int32, device=cuda)
+    j = 0
+    for b, c in enumerate(curs):
+        n = c // BS + 1
+        tables[b, :n] = perm[j:j + n]
+        j += n
+    for b, slot in holes:
+        tables[b, slot] = -1
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    q = _randn(g, B, Hq, D)
+    out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    split, _ = kops.decode_split(MB * BS, B, Hkv, BS)
+    _close(out, ref.paged_decode_attention_ref(q, pk, pv, tables, cur), 2e-5)
+    _close(out, ref.paged_decode_attention_split_ref(q, pk, pv, tables, cur,
+                                                     split), 2e-5)
+    again = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_kernel_main_path(cuda, dtype):
     """Llama-3.1-8B heads over interleaved 128-token pages: the plain
-    version, and the contiguous decode kernel on the gathered KV."""
+    version, and bit for bit the contiguous decode kernel on the gathered
+    KV (both kernels cut the keys into the same splits)."""
     q, pk, pv, tables, cur = _main_path_paged(cuda, dtype)
     out = kops.paged_decode_attention(q, pk, pv, tables, cur)
     want = ref.paged_decode_attention_ref(q, pk, pv, tables, cur)
@@ -392,11 +501,9 @@ def test_paged_kernel_main_path(cuda, dtype):
     if dtype == torch.bfloat16:
         _close(out, want, 3e-2)
         _within_bf16_steps(out, want)
-        _close(out, contiguous, 3e-2)
-        _within_bf16_steps(out, contiguous)
     else:
         _close(out, want, 2e-5)
-        _close(out, contiguous, 2e-5)
+    assert torch.equal(out, contiguous)
 
 
 def test_paged_kernel_never_reads_foreign_pages(cuda):
