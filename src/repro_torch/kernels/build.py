@@ -39,8 +39,9 @@ _ARGTYPES = {
     # MB, BS, Hq, Hkv, D, scale, split, stream
     "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _F, _I, _P],
-    # r, k, v, w, u, s0, y, sT, B, S, H, K, chunk, stream
-    "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, k, v, w, u, s0, y, sT, ws, B, S, H, K, chunk, segment, stream
+    "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

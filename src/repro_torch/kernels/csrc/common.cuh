@@ -1,5 +1,5 @@
-// Shared helpers for the attention kernels: element conversion and the
-// finite masking sentinel of the plain versions (kernels/ref.py).
+// Shared helpers for the kernels: element conversion, the finite masking
+// sentinel of the plain versions (kernels/ref.py), 16-byte loads, cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +11,7 @@ namespace repro_torch {
 // wiped by alpha = exp(NEG_INF - m) = 0 once a visible key arrives, where a
 // true -inf would give exp(-inf - -inf) = NaN.
 constexpr float kNegInf = -1073741824.0f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -105,6 +106,23 @@ struct RowTile {
     }
   }
 };
+
+// 16-byte asynchronous copy global -> shared (.cg: cached in L2 only);
+// with valid == false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Dtype codes shared with kernels/ops.py.
 constexpr int kF32 = 0;

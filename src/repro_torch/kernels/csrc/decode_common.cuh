@@ -46,7 +46,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;
 constexpr int kSplitQuantum = 64;  // every split is a multiple (>= any tile)
 constexpr int kSplitMax = 2048;    // bounds the paged row table
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct DecodeParams {
   const void* q;        // (B, Hq, D)
@@ -93,21 +92,6 @@ __host__ __device__ constexpr size_t ring_bytes() {
 template <typename T, int D, int GMAX, bool PAGED>
 size_t smem_bytes(int split) {
   return ring_bytes<T, D, GMAX>() + (PAGED ? sizeof(int) * (size_t)split : 0);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void live_range(const DecodeParams& p, int b,

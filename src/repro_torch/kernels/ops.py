@@ -202,12 +202,34 @@ def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
 
 WKV_HEAD_DIMS = (8, 16, 32, 64)
 WKV_MAX_CHUNK = 64
+# The WKV6 kernel's segment rule (csrc/wkv6.cu).  Segments are chunk * 2^k
+# tokens, at most max(WKV_SEG_MAX, chunk), and as long as they can be while
+# (B * H) * nseg still gives WKV_BLOCKS_WANTED blocks: a few per SM of an
+# H100 for the passes that run one block per (segment, head, request).
+WKV_SEG_MAX = 64
+WKV_BLOCKS_WANTED = 4 * 132
+
+
+def wkv6_segment(S: int, B: int, H: int, chunk: int) -> tuple[int, int]:
+    """(segment, nseg) for a sequence of S tokens in chunks of `chunk`,
+    B requests and H heads.  It depends on the shapes alone."""
+    want = -(-WKV_BLOCKS_WANTED // max(B * H, 1))
+    most = max(WKV_SEG_MAX, chunk)
+    seg = chunk
+    while 2 * seg <= most and -(-S // (2 * seg)) >= want:
+        seg *= 2
+    return seg, -(-max(S, 1) // seg)
 
 
 def wkv6_op(r, k, v, w, u, s0, chunk: int = 16):
     """(B,S,H,K)-layout WKV6: r, k, v, w (B,S,H,K), u (H,K), s0 (B,H,K,K),
     all f32 -> (y (B,S,H,K), sT (B,H,K,K)).  A ragged tail needs no
-    padding: the kernel treats positions past S as w = 1, k = 0."""
+    padding: the kernel treats positions past S as w = 1, k = 0.
+
+    On the card: three passes over segments of ``wkv6_segment(S, B, H,
+    chunk)`` tokens (every segment's decay and state contribution, the scan
+    over segments, every segment's outputs), with scratch of
+    (nseg - 1) * B * H * (K * K + K) floats from ``torch.empty``."""
     if r.device.type == "cpu":
         return ref.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
     B, S, H, K = r.shape
@@ -221,18 +243,24 @@ def wkv6_op(r, k, v, w, u, s0, chunk: int = 16):
         if t.device != r.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: the kernel takes f32 on {r.device}, "
                              f"got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes contiguous, 16-byte "
+                             f"aligned tensors")
     if K not in WKV_HEAD_DIMS:
         raise ValueError(f"head dim {K} not in {WKV_HEAD_DIMS}")
     if not 1 <= chunk <= WKV_MAX_CHUNK:
         raise ValueError(f"chunk {chunk} not in 1..{WKV_MAX_CHUNK}")
+    segment, nseg = wkv6_segment(S, B, H, chunk)
     y = torch.empty_like(r)
     sT = torch.empty_like(s0)
+    ws = None if nseg == 1 else torch.empty(
+        (nseg - 1) * B * H * (K * K + K), dtype=torch.float32,
+        device=r.device)
     fn = build.lib("wkv6").wkv6
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-             B, S, H, K, int(chunk), _stream(r))
+             0 if ws is None else ws.data_ptr(), B, S, H, K, int(chunk),
+             segment, _stream(r))
     _raise_on(err, "wkv6")
     LAUNCHES["wkv6"] += 1
     return y, sT

@@ -8,7 +8,11 @@ one is the batched form of ``serving/paged.py``'s oracle; the two
 ``*_split_ref`` functions compute the same decode attention in the split-KV
 kernels' two passes, for the tests.  ``wkv6_ref`` is
 the sequential RWKV-6 oracle and ``wkv6_chunked`` the reference model's
-chunked form of it (``models/ops.py: rwkv_wkv_chunked``).  The CPU path of
+chunked form of it (``models/ops.py: rwkv_wkv_chunked``).  Two more compute
+a function here with a kernel's own arithmetic, for the tests:
+``chunked_prefill_attention_split_p_ref`` (the bf16 tensor-core kernel's
+tiles and P rounding) and ``wkv6_segmented`` (the WKV6 kernel's three
+passes over segments).  The CPU path of
 every wrapper in ``kernels/ops.py`` runs these; on the card they are what
 the kernels are held against.
 """
@@ -54,6 +58,65 @@ def chunked_prefill_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgql,blkd->bqkgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+PREFILL_TILE_KEYS = 64      # csrc/chunked_prefill_attention.cu kBK
+
+
+def chunked_prefill_attention_split_p_ref(
+        q, k, v, offset, lengths, window: int = 0, softcap: float = 0.0,
+        scale: Optional[float] = None, p_parts: int = 2) -> torch.Tensor:
+    """``chunked_prefill_attention_ref`` computed with the bf16 tensor-core
+    kernel's rounding: an online softmax (log2 domain) over kv tiles of
+    PREFILL_TILE_KEYS keys, P rounded to `p_parts` bf16 terms before P·V
+    (2: the kernel's hi + lo pair, p_hi = bf16(p), p_lo = bf16(p - p_hi);
+    1: a single bf16 P), V and the products in f32, the row sum from the
+    f32 P.
+    A row with no visible key gets the mean of v over all Skv keys.  For
+    the tests; no serving path calls it."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    qq = q.reshape(B, Sq, Hkv, G, D).float().permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, Hkv, Skv, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    q_pos = offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)
+    lens = lengths.to(dev).long()[:, None, None]
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=dev)
+    l = torch.zeros(B, Hkv, G, Sq, device=dev)
+    o = torch.zeros(B, Hkv, G, Sq, D, device=dev)
+    for kb in range(0, Skv, PREFILL_TILE_KEYS):
+        ke = min(kb + PREFILL_TILE_KEYS, Skv)
+        s = torch.einsum("bkgqd,bkld->bkgql", qq, kf[:, :, kb:ke]) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        s = s * LOG2E
+        k_pos = torch.arange(kb, ke, device=dev)[None, None]
+        vis = (k_pos <= q_pos[:, :, None]) & (k_pos < lens)
+        if window:
+            vis &= k_pos > q_pos[:, :, None] - window
+        s = torch.where(vis[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        terms = []
+        rest = p
+        for _ in range(p_parts):
+            t = rest.bfloat16().float()
+            terms.append(t)
+            rest = rest - t
+        o = o * alpha[..., None]
+        for t in terms:
+            o = o + torch.einsum("bkgql,bkld->bkgqd", t, vf[:, :, kb:ke])
+        m = m_new
+    out = o / l.clamp(min=1e-30)[..., None]
+    mean_v = vf.mean(2)[:, :, None, None]               # (B, Hkv, 1, 1, D)
+    out = torch.where((m == NEG_INF)[..., None], mean_v, out)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def decode_attention_ref(
@@ -263,3 +326,45 @@ def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 16):
             + torch.einsum("bchk,bchv->bhkv", k_carry, vc)
         ys.append(y)
     return torch.cat(ys, 1)[:, :S], s
+
+
+def wkv6_segmented(r, k, v, w, u, s0, chunk: int = 16, segment: int = 64):
+    """``wkv6_chunked`` computed as the chunk-parallel kernel computes it,
+    in three passes over segments of `segment` tokens (a whole number of
+    chunks).  Pass 1, every segment but the last: its total decay
+    e^{L_last} and its own state contribution from a zero state,
+    sum_s (k_s e^{L_last - L_s}) (x) v_s, with L_last - L_s summed directly
+    over the tokens after s.  Pass 2: the scan S_{g+1} = e^{L_last,g} S_g +
+    dS_g from s0, the state entering each segment.  Pass 3, every segment:
+    ``wkv6_chunked`` from its entering state; the last segment's final
+    state is sT.  A ragged tail reads as w = 1, k = r = v = 0.  For the
+    tests; no serving path calls it.
+
+    r, k, v, w: (B, S, H, K) f32; u: (H, K); s0: (B, H, K, K).
+    Returns (y (B, S, H, K), sT (B, H, K, K)), f32."""
+    B, S, H, K = r.shape
+    if segment % chunk:
+        raise ValueError(f"segment {segment} is not a whole number of "
+                         f"chunks of {chunk}")
+    nseg = -(-S // segment)
+    pad = nseg * segment - S
+    if pad:
+        def ext(x, val):
+            return torch.cat([x, x.new_full((B, pad, H, K), val)], 1)
+        r, k, v, w = ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
+
+    def segs(x):                                    # (B, nseg, T, H, K)
+        return x.reshape(B, nseg, segment, H, K)
+    logw = torch.log(segs(w).clamp(min=1e-38))
+    after = logw.flip(2).cumsum(2).flip(2) - logw   # sum over tokens after s
+    dS = torch.einsum("bgshk,bgshv->bghkv", segs(k) * torch.exp(after),
+                      segs(v))
+    decay = torch.exp(logw.sum(2))                  # (B, nseg, H, K)
+    s_in = [s0.float()]
+    for g in range(nseg - 1):
+        s_in.append(decay[:, g, :, :, None] * s_in[-1] + dS[:, g])
+    s_in = torch.stack(s_in, 1).reshape(B * nseg, H, K, K)
+    y, s_out = wkv6_chunked(*(segs(x).reshape(B * nseg, segment, H, K)
+                              for x in (r, k, v, w)), u, s_in, chunk=chunk)
+    y = y.reshape(B, nseg * segment, H, K)[:, :S]
+    return y, s_out.reshape(B, nseg, H, K, K)[:, -1]

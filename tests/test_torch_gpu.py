@@ -137,6 +137,64 @@ def test_prefill_kernel_f32_main_path(cuda, Sq, off, lens):
     _close(out, want, 2e-5)
 
 
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,window,cap", SWEEP)
+def test_prefill_kernel_bf16_sweep(cuda, B, Sq, Skv, Hq, Hkv, D, window, cap):
+    """The tensor-core path on every head dim, window, softcap and group
+    size: against the plain version (3e-2, and 2e-5 + 2 bf16 steps) and
+    against the plain version with the kernel's rounding (split P)."""
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + Sq + 7)
+    q = _randn(g, B, Sq, Hq, D, dtype=torch.bfloat16)
+    k = _randn(g, B, Skv, Hkv, D, dtype=torch.bfloat16)
+    v = _randn(g, B, Skv, Hkv, D, dtype=torch.bfloat16)
+    off = torch.randint(0, Skv - Sq + 1, (B,), generator=g, device=cuda)
+    lens = torch.randint(1, Skv + 1, (B,), generator=g, device=cuda)
+    out = kops.prefill_attention(q, k, v, off, lens, window=window,
+                                 softcap=cap)
+    for want in (ref.chunked_prefill_attention_ref(
+                     q, k, v, off, lens, window=window, softcap=cap),
+                 ref.chunked_prefill_attention_split_p_ref(
+                     q, k, v, off, lens, window=window, softcap=cap)):
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+
+
+@pytest.mark.parametrize("Sq,off,lens", MAIN_PATH_PREFILL)
+def test_prefill_kernel_bf16_main_path_split_p(cuda, Sq, off, lens):
+    """The main-path cases against the plain version with the kernel's own
+    rounding (64-key tiles, P as bf16 hi + lo)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = _randn(g, 1, Sq, 32, 128, dtype=torch.bfloat16)
+    k = _randn(g, 1, 2048, 8, 128, dtype=torch.bfloat16)
+    v = _randn(g, 1, 2048, 8, 128, dtype=torch.bfloat16)
+    o = torch.tensor([off], device=cuda)
+    n = torch.tensor([lens], device=cuda)
+    out = kops.prefill_attention(q, k, v, o, n)
+    want = ref.chunked_prefill_attention_split_p_ref(q, k, v, o, n)
+    _close(out, want, 3e-2)
+    _within_bf16_steps(out, want)
+    again = kops.prefill_attention(q, k, v, o, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_kernel_row_without_visible_key_both_paths(cuda, dtype):
+    """A windowed row past every valid key gets the mean of v over Skv, on
+    the tensor-core (bf16) and the CUDA-core (f32) path alike."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q = _randn(g, 1, 40, 8, 64, dtype=dtype)
+    k = _randn(g, 1, 96, 2, 64, dtype=dtype)
+    v = _randn(g, 1, 96, 2, 64, dtype=dtype)
+    o, n = torch.tensor([15], device=cuda), torch.tensor([20], device=cuda)
+    out = kops.prefill_attention(q, k, v, o, n, window=8)
+    want = ref.chunked_prefill_attention_ref(q, k, v, o, n, window=8)
+    if dtype == torch.bfloat16:
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+    else:
+        _close(out, want, 2e-5)
+
+
 def test_prefill_kernel_row_without_visible_key(cuda):
     g = torch.Generator(device=cuda).manual_seed(9)
     q = _randn(g, 1, 8, 2, 16)
@@ -263,6 +321,24 @@ def test_wrappers_count_launches(cuda):
                              "paged_decode_attention": 1, "wkv6": 1}
 
 
+def test_wrappers_count_one_launch_per_call_on_the_new_paths(cuda):
+    """The bf16 tensor-core prefill path and a WKV6 call of several
+    segments (three kernels from one C call) count one launch each."""
+    kops.reset_launches()
+    q = torch.randn(1, 64, 8, 64, device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
+    kops.prefill_attention(q, kv, kv, torch.zeros(1, device=cuda),
+                           torch.full((1,), 100, device=cuda))
+    x = torch.rand(1, 1024, 40, 64, device=cuda)
+    assert kops.wkv6_segment(1024, 1, 40, 16)[1] > 1
+    kops.wkv6_op(x, x, x, x, torch.rand(40, 64, device=cuda),
+                 torch.zeros(1, 40, 64, 64, device=cuda))
+    torch.cuda.synchronize()
+    assert kops.LAUNCHES == {"chunked_prefill_attention": 1,
+                             "decode_attention": 0,
+                             "paged_decode_attention": 0, "wkv6": 1}
+
+
 def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     q = torch.randn(1, 4, 2, 24, device=cuda)
     kv = torch.randn(1, 8, 2, 24, device=cuda)
@@ -384,6 +460,52 @@ def test_wkv6_kernel_main_path(cuda, S, s0_zero):
     zero state, a convertible chunk from a carried state, a ragged tail."""
     _wkv_check(_wkv_inputs(cuda, 1, S, 40, 64, seed=S, model_decay=True,
                            s0_zero=s0_zero), oracle=S <= 256)
+
+
+WKV_SEGMENT_CASES = {
+    # id: (B, S, H, K, chunk); the segments the wrapper picks for them
+    "one-segment": (1, 8, 40, 64, 16),
+    "two-segments": (2, 37, 2, 16, 16),
+    "many-segments-ragged-last": (1, 1000, 40, 64, 16),
+    "chunk-8": (2, 300, 4, 32, 8),
+    "chunk-32": (1, 500, 3, 64, 32),
+    "head-dim-8": (3, 129, 2, 8, 16),
+    "long-4096": (1, 4096, 40, 64, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(WKV_SEGMENT_CASES))
+def test_wkv6_kernel_segment_cases(cuda, case):
+    """One segment, two, many with a ragged last one, other chunk and head
+    sizes, and a 4096-token prompt (64 segments): the kernel against the
+    plain chunked version, its plain three-pass version at the wrapper's
+    segment, and bit-equal to itself."""
+    B, S, H, K, chunk = WKV_SEGMENT_CASES[case]
+    args = _wkv_inputs(cuda, B, S, H, K, seed=S + K, model_decay=True)
+    y, sT = kops.wkv6_op(*args, chunk=chunk)
+    segment, nseg = kops.wkv6_segment(S, B, H, chunk)
+    for want_y, want_s in (ref.wkv6_chunked(*args, chunk=chunk),
+                           ref.wkv6_segmented(*args, chunk=chunk,
+                                              segment=segment)):
+        _close(y, want_y, 2e-4)
+        _close(sT, want_s, 2e-4)
+    y2, sT2 = kops.wkv6_op(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(sT, sT2)
+
+
+def test_wkv6_kernel_zero_key_is_identity(cuda):
+    """k = 0 across several segments: the state is s0 decayed, y = r-side
+    reads of it only."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, H, K = 1, 200, 3, 16
+    r, v = _randn(g, B, S, H, K), _randn(g, B, S, H, K)
+    k = torch.zeros(B, S, H, K, device=cuda)
+    w = torch.full((B, S, H, K), 0.97, device=cuda)
+    u, s0 = _randn(g, H, K), _randn(g, B, H, K, K)
+    assert kops.wkv6_segment(S, B, H, 16)[1] > 1
+    _, sT = kops.wkv6_op(r, k, v, w, u, s0)
+    _close(sT, s0 * 0.97 ** S, 1e-4)
 
 
 def test_wkv6_kernel_state_carry_composes(cuda):
