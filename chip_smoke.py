@@ -26,7 +26,12 @@ Phases (any failure exits non-zero; nothing is skipped):
                the plain versions eagerly; also the prefill kernel at the
                convertible chunk and a burst prompt beside SDPA, WKV6 at a
                256-token chunk from a carried state, device time by kernel
-               of the split-KV and the three WKV6 passes
+               of the split-KV and the three WKV6 passes; then the three
+               attention kernels at head dim 256 (Gemma-2-9B's heads with
+               softcap 50, windows of 4096 that bite, Gemma-2B's MQA heads;
+               paged bit-equal to contiguous) in bf16 and f32, and their
+               times at Gemma-2-9B's main shapes beside SDPA at the same
+               shape without softcap or window (a yardstick only)
   3. serve   — Llama-3.1-8B at its published widths (random weights from a
                seed, bf16) served PD-disaggregated by PDCluster (prefiller,
                decoder, convertible decoder), then a convertible Engine
@@ -43,8 +48,21 @@ Phases (any failure exits non-zero; nothing is skipped):
                around exactly this phase; every transfer ships the whole
                recurrent state, 21,299,200 B, whatever the prompt length;
                the same two profiles
-  6. exact   — the f32 SMOKE configs (Llama, RWKV-6) served by PDCluster
-               give the same tokens as greedy generation on the card
+  6. gemma   — Gemma-2-9B at its published widths and depth (bf16, seed
+               0; local window 4096 / global layers, softcaps, D = 256)
+               served by the same PD traffic plus one prompt of 4400-4800
+               tokens (max_len 5120), then a convertible Engine with two
+               prompts of 600-1100 and one of 4300-4700 (chunks past 4096
+               meet the window); the attention kernels' counters are read
+               around exactly this phase; every transfer is 344,064 B per
+               128-rounded token; the long prompt's logits through the
+               kernels against the plain versions (bf16: finite, beside the
+               plain path against itself in another rounding; the model in
+               f32: within 1e-3); the same two profiles
+  7. exact   — the f32 SMOKE configs (Llama, RWKV-6, Gemma-2 with prompts
+               past its 64-token window, Llama with the int8 KV cache)
+               served by PDCluster give the same tokens as greedy
+               generation on the card
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -57,6 +75,7 @@ import math
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +99,9 @@ PAGED_CASES = [                          # tests/test_paged_and_sampling.py
 ]
 DECODE_CUR = [0, 700, 1500, 2047]        # the decode rows' cache lengths
 PAYLOAD_RWKV = 21_299_200                # 32 x (40*64*64*4 + 2*2560*2) B
+PAYLOAD_GEMMA = 344_064                  # 42 x 2 x 8 x 256 x 2 B per token
+GEMMA_DECODE_CUR = [0, 700, 1500, 4600]  # Gemma-2-9B's decode rows
+GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0     # its local layers' window, softcap
 PREFILL_SWEEP = [                        # tests/test_kernels.py SWEEP + G=5
     (1, 8, 8, 1, 1, 16, 0, 0.0), (2, 24, 40, 4, 2, 64, 0, 0.0),
     (2, 24, 40, 4, 2, 64, 16, 0.0), (2, 24, 40, 4, 2, 64, 0, 30.0),
@@ -264,8 +286,12 @@ def phase_build():
     build.build_all()
     log(f"[build] all {len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t:.1f} s")
+    d256 = {}
     for name in build.SOURCES:
-        log(f"[build] {name}: ptxas {ptxas_report(build.build_log(name))}")
+        rep = ptxas_report(build.build_log(name))
+        log(f"[build] {name}: ptxas {rep}")
+        d256.update({k: v for k, v in rep.items() if "256" in k.split("<")[1]})
+    log(f"[build] head dim 256 instantiations: ptxas {d256}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -302,6 +328,23 @@ def ptxas_report(text):
     return out
 
 
+def judge_attention(errs, kind, label, dt, out, want):
+    """An attention kernel's output against its plain version: the
+    reference's tolerance for the type and, in bf16, 2e-5 + 2 bf16 steps of
+    the plain value; bf16 errors go into errs[kind].  Logs; returns ok."""
+    bf = torch.bfloat16
+    e, good = max_err(out, want), close(out, want, TOL[dt])
+    note = f"max_abs_err {e:.3g} (tol {TOL[dt]})"
+    if dt == bf:
+        share = bf16_bound_share(out, want)
+        good &= share <= 1
+        note += f"; {share:.3g} of the 2e-5 + 2 bf16 steps bound"
+        errs[kind] = max(errs[kind], e)
+    log(f"[parity] {kind} {'bf16' if dt == bf else 'f32'} {label}: "
+        f"{note} {'ok' if good else 'FAIL'}")
+    return good
+
+
 def _rand(g, shape, dtype):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
@@ -324,18 +367,6 @@ def phase_parity():
              "convertible chunk Sq=256 off=768 len=1024": (256, 768, 1024),
              "burst prompt Sq=2048 Skv=2048 len=1500": (2048, 0, 1500)}
 
-    def judge(kind, label, dt, out, want):
-        e, good = max_err(out, want), close(out, want, TOL[dt])
-        note = f"max_abs_err {e:.3g} (tol {TOL[dt]})"
-        if dt == bf:
-            share = bf16_bound_share(out, want)
-            good &= share <= 1
-            note += f"; {share:.3g} of the 2e-5 + 2 bf16 steps bound"
-            errs[kind] = max(errs[kind], e)
-        log(f"[parity] {kind} {'bf16' if dt == bf else 'f32'} {label}: "
-            f"{note} {'ok' if good else 'FAIL'}")
-        return good
-
     main_inputs = {}
     for dt in (bf, f32):
         for label, (Sq, off, n) in cases.items():
@@ -344,20 +375,23 @@ def phase_parity():
             v = _rand(g, (1, 2048, 8, 128), dt)
             o = torch.tensor([off], device=dev)
             ln = torch.tensor([n], device=dev)
-            ok &= judge("chunked_prefill_attention", label, dt,
-                        kops.prefill_attention(q, k, v, o, ln),
-                        ref.chunked_prefill_attention_ref(q, k, v, o, ln))
+            ok &= judge_attention(
+                errs, "chunked_prefill_attention", label, dt,
+                kops.prefill_attention(q, k, v, o, ln),
+                ref.chunked_prefill_attention_ref(q, k, v, o, ln))
             main_inputs[label] = (Sq, off, n)
         q = _rand(g, (4, 32, 128), dt)
         k, v = _rand(g, (4, 2048, 8, 128), dt), _rand(g, (4, 2048, 8, 128), dt)
         cur = torch.tensor([0, 700, 1500, 2047], device=dev)
         out = kops.decode_attention_op(q, k, v, cur)
-        ok &= judge("decode_attention", "B=4 L=2048 cur=[0,700,1500,2047]",
-                    dt, out, ref.decode_attention_ref(q, k, v, cur))
+        ok &= judge_attention(
+            errs, "decode_attention", "B=4 L=2048 cur=[0,700,1500,2047]", dt,
+            out, ref.decode_attention_ref(q, k, v, cur))
         split, nsplit = kops.decode_split(2048, 4, 8)
-        ok &= judge("decode_attention", f"the same vs the plain split-and-"
-                    f"merge version ({nsplit} splits of {split})", dt, out,
-                    ref.decode_attention_split_ref(q, k, v, cur, split))
+        ok &= judge_attention(
+            errs, "decode_attention", f"the same vs the plain split-and-merge "
+            f"version ({nsplit} splits of {split})", dt, out,
+            ref.decode_attention_split_ref(q, k, v, cur, split))
         same = bool(torch.equal(out, kops.decode_attention_op(q, k, v, cur)))
         ok &= same
         log(f"[parity] decode_attention {'bf16' if dt == bf else 'f32'}: two "
@@ -494,6 +528,10 @@ def phase_parity():
     errs["paged_decode_attention"], rows["paged_decode_attention"] = \
         parity_paged(g)
     errs["wkv6"], rows["wkv6"] = parity_wkv6(g)
+    e256, r256 = parity_head_dim_256(g)
+    for name in r256:
+        errs[f"{name}_d256"] = e256[name]
+        rows[f"{name}_d256"] = r256[name]
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (eager {r['library_eager_ms']:.4f})"
@@ -502,6 +540,182 @@ def phase_parity():
             f"us/call); bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
             f"{r['bound'][0] / r['ms']:.3f} of it; plain {r['plain_ms']:.4f}"
             f" ms (eager); library {lib}")
+    return errs, rows
+
+
+def parity_head_dim_256(g):
+    """The three attention kernels at head dim 256 (Gemma, Gemma-2) against
+    their plain versions, in bf16 (3e-2 and 2e-5 + 2 bf16 steps) and f32
+    (2e-5): prefill with Gemma-2-9B's heads (16 / 8) and softcap 50, at a
+    prompt, a prompt past the 4096 window and a chunk past it, and with
+    Gemma-2B's MQA heads (8 / 1); decode with Gemma-2-9B's heads, a window
+    that bites and softcap 50, also against the plain split-and-merge
+    version and bit-equal to itself, and with the MQA heads; paged decode
+    over interleaved pages, bit-equal to the contiguous kernel on the
+    gathered KV.  Then times at Gemma-2-9B's main shapes beside SDPA at the
+    same shape with no softcap and no window (SDPA has no softcap: a
+    yardstick, not the same function).  Returns (bf16 errors, rows) keyed
+    by kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    bf, f32, D = torch.bfloat16, torch.float32, 256
+    errs = {"chunked_prefill_attention": 0.0, "decode_attention": 0.0,
+            "paged_decode_attention": 0.0}
+    ok = True
+    prefill_cases = {
+        # label: (Hq, Hkv, Sq, Skv, offset, length, window, softcap)
+        "Gemma-2-9B heads, prompt Sq=512 Skv=2048, softcap 50":
+            (16, 8, 512, 2048, 0, 512, 0, GEMMA_CAP),
+        "Gemma-2-9B heads, prompt past the window Sq=5120 len=4600, "
+        "window 4096, softcap 50":
+            (16, 8, 5120, 5120, 0, 4600, GEMMA_WINDOW, GEMMA_CAP),
+        "Gemma-2-9B heads, chunk past the window Sq=256 off=4352 len=4608, "
+        "window 4096, softcap 50":
+            (16, 8, 256, 5120, 4352, 4608, GEMMA_WINDOW, GEMMA_CAP),
+        "Gemma-2B MQA heads 8/1, prompt Sq=512 Skv=2048":
+            (8, 1, 512, 2048, 0, 512, 0, 0.0),
+    }
+    decode_cases = {
+        # label: (Hq, Hkv, L, cur_lens, window, softcap)
+        f"Gemma-2-9B heads B=4 L=5120 cur={GEMMA_DECODE_CUR}, window 4096, "
+        "softcap 50": (16, 8, 5120, GEMMA_DECODE_CUR, GEMMA_WINDOW,
+                       GEMMA_CAP),
+        "Gemma-2B MQA heads 8/1 B=3 L=2048 cur=[2047, 0, 1000]":
+            (8, 1, 2048, [2047, 0, 1000], 0, 0.0),
+    }
+    tables = torch.as_tensor(interleaved_tables([c + 1 for c in DECODE_CUR],
+                                                40, 16), device="cuda")
+    safe = tables.clamp(min=0).long()
+    pcur = i32(DECODE_CUR)
+    for dt in (bf, f32):
+        tag = "bf16" if dt == bf else "f32"
+        for label, (Hq, Hkv, Sq, Skv, off, n, win, cap) in \
+                prefill_cases.items():
+            q = _rand(g, (1, Sq, Hq, D), dt)
+            k = _rand(g, (1, Skv, Hkv, D), dt)
+            v = _rand(g, (1, Skv, Hkv, D), dt)
+            o, ln = i32([off]), i32([n])
+            ok &= judge_attention(
+                errs, "chunked_prefill_attention", f"D=256 {label}", dt,
+                kops.prefill_attention(q, k, v, o, ln, window=win,
+                                       softcap=cap),
+                ref.chunked_prefill_attention_ref(q, k, v, o, ln, window=win,
+                                                  softcap=cap))
+            del q, k, v
+        for label, (Hq, Hkv, L, curs, win, cap) in decode_cases.items():
+            B = len(curs)
+            q = _rand(g, (B, Hq, D), dt)
+            k, v = _rand(g, (B, L, Hkv, D), dt), _rand(g, (B, L, Hkv, D), dt)
+            cur = i32(curs)
+            out = kops.decode_attention_op(q, k, v, cur, window=win,
+                                           softcap=cap)
+            split, nsplit = kops.decode_split(L, B, Hkv)
+            ok &= judge_attention(
+                errs, "decode_attention", f"D=256 {label}", dt, out,
+                ref.decode_attention_ref(q, k, v, cur, window=win,
+                                         softcap=cap))
+            ok &= judge_attention(
+                errs, "decode_attention", f"D=256 {label}, vs the plain "
+                f"split-and-merge version ({nsplit} splits of {split})", dt,
+                out, ref.decode_attention_split_ref(q, k, v, cur, split,
+                                                    window=win, softcap=cap))
+            same = bool(torch.equal(out, kops.decode_attention_op(
+                q, k, v, cur, window=win, softcap=cap)))
+            ok &= same
+            log(f"[parity] decode_attention {tag} D=256 {label}: two calls "
+                f"bit-equal: {same}")
+        q = _rand(g, (4, 16, D), dt)
+        pk, pv = _rand(g, (40, 128, 8, D), dt), _rand(g, (40, 128, 8, D), dt)
+        out = kops.paged_decode_attention(q, pk, pv, tables, pcur)
+        split, _ = kops.decode_split(16 * 128, 4, 8, 128)
+        label = f"D=256 Gemma-2-9B heads B=4 cur={DECODE_CUR} interleaved " \
+            "pages"
+        ok &= judge_attention(
+            errs, "paged_decode_attention", label, dt, out,
+            ref.paged_decode_attention_ref(q, pk, pv, tables, pcur))
+        ok &= judge_attention(
+            errs, "paged_decode_attention", f"{label}, vs the plain "
+            "split-and-merge version", dt, out,
+            ref.paged_decode_attention_split_ref(q, pk, pv, tables, pcur,
+                                                 split))
+        same = bool(torch.equal(out, kops.decode_attention_op(
+            q, pk[safe].reshape(4, -1, 8, D), pv[safe].reshape(4, -1, 8, D),
+            pcur)))
+        ok &= same
+        log(f"[parity] paged_decode_attention {tag} {label}: bit-equal to "
+            f"the contiguous decode kernel on the gathered KV: {same}")
+    check(ok, "head dim 256 kernel parity failed")
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              enable_gqa=True)
+
+    def prefill_row(Sq, Skv, n, win, shape):
+        kv_bytes = (Sq * 16 + 2 * Skv * 8) * D * 2
+        sets = []
+        for _ in range(n_copies(kv_bytes)):
+            q = _rand(g, (1, Sq, 16, D), bf)
+            k, v = _rand(g, (1, Skv, 8, D), bf), _rand(g, (1, Skv, 8, D), bf)
+            sets.append((q, k, v, i32([0]), i32([n])))
+        ar = torch.arange(Skv, device="cuda")
+        mask = (ar[None, :] <= torch.arange(Sq, device="cuda")[:, None]) \
+            & (ar[None, :] < n)
+        return timed_row(
+            lambda q, k, v, o, ln: kops.prefill_attention(
+                q, k, v, o, ln, window=win, softcap=GEMMA_CAP),
+            lambda q, k, v, o, ln: ref.chunked_prefill_attention_ref(
+                q, k, v, o, ln, window=win, softcap=GEMMA_CAP),
+            sets, sdpa,
+            [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              mask[None, None]) for q, k, v, _, _ in sets],
+            bound=prefill_bound(sets[0][0], sets[0][1], [0], [n], win),
+            shape=shape)
+
+    rows = {"chunked_prefill_attention": prefill_row(
+        512, 2048, 512, 0, "B=1 Sq=512 Skv=2048 Hq=16 Hkv=8 D=256 bf16, "
+        "softcap 50, offset 0, len 512")}
+    r = prefill_row(5120, 5120, 4600, GEMMA_WINDOW, "")
+    log(f"[time] prefill kernel D=256, Gemma-2-9B prompt past the window "
+        f"(Sq=5120 Skv=5120 len 4600, window 4096, softcap 50): "
+        f"{r['ms']:.4f} ms (graph; eager {r['eager_ms']:.4f} ms, host "
+        f"{r['host_us']:.1f} us/call); bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of it; plain "
+        f"{r['plain_ms']:.4f} ms (eager); SDPA with no softcap and no window "
+        f"{r['library_ms']:.4f} ms (eager {r['library_eager_ms']:.4f})")
+
+    def decode(q, k, v, c):
+        return kops.decode_attention_op(q, k, v, c, window=GEMMA_WINDOW,
+                                        softcap=GEMMA_CAP)
+
+    L, curs = 5120, i32(GEMMA_DECODE_CUR)
+    dsets = []
+    for _ in range(n_copies(4 * L * 8 * D * 2 * 2)):
+        q = _rand(g, (4, 16, D), bf)
+        k, v = _rand(g, (4, L, 8, D), bf), _rand(g, (4, L, 8, D), bf)
+        dsets.append((q, k, v, curs))
+    dmask = torch.arange(L, device="cuda")[None, :] <= curs[:, None]
+    rows["decode_attention"] = timed_row(
+        decode, lambda q, k, v, c: ref.decode_attention_ref(
+            q, k, v, c, window=GEMMA_WINDOW, softcap=GEMMA_CAP),
+        dsets, sdpa,
+        [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+          dmask[:, None, None]) for q, k, v, _ in dsets],
+        bound=decode_bound(dsets[0][0], dsets[0][1], GEMMA_DECODE_CUR,
+                           GEMMA_WINDOW),
+        shape=f"B=4 L=5120 Hq=16 Hkv=8 D=256 bf16, cur_lens "
+              f"{'/'.join(map(str, GEMMA_DECODE_CUR))}, window 4096, "
+              "softcap 50")
+    log(f"[time] decode_attention D=256 device us per call by kernel "
+        f"(torch.profiler): "
+        f"{device_us_by_kernel(decode, dsets)}")
+    for row in rows.values():
+        row["shape"] += "; library: SDPA with no softcap and no window, a " \
+            "yardstick only"
+    log(f"[parity] head dim 256 checks and times: "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs, rows
 
 
@@ -759,25 +973,34 @@ def parity_wkv6(g):
         shape="B=1 S=1024 H=40 K=64 f32, chunk 16")
 
 
-def drive_pd(cfg, model, tag):
+def drive_pd(cfg, model, tag, max_len=2048, long_pd=(), long_direct=(),
+             max_instances=8):
     """The main path's traffic, as a user sends it: PDCluster (1 prefiller,
-    1 decoder, 1 convertible; 4 slots, max_len 2048, chunk 256) takes a
-    trickle of 8 requests of 64-768 tokens, then a burst of 4 of 1024-1536,
-    32 new tokens each; then a convertible Engine takes 2 prompts of
-    600-1100.  The kernels' counters are zeroed just before and read just
-    after.  Returns the run's figures; prints them under `tag`."""
+    1 decoder, 1 convertible; 4 slots, `max_len`, chunk 256; the Scaler
+    boots at most `max_instances` of a kind) takes a trickle of 8 requests
+    of 64-768 tokens, then a burst of 4 of 1024-1536, 32 new tokens each,
+    with the burst a request of each (lo, hi) prompt-length range in
+    `long_pd`; then a convertible Engine takes 2 prompts of 600-1100 and
+    one of each range in `long_direct`.  The long prompts are drawn from a
+    second seed, so the other requests are the same with and without them.
+    The kernels' counters are zeroed just before and read just after.
+    Returns the run's figures; prints them under `tag`."""
     from repro_torch.core import CHIPS, InstanceSpec, TokenScalePolicy, profile
     from repro_torch.kernels import ops as kops
     from repro_torch.serving import Engine, PDCluster, Request
 
-    rng = np.random.RandomState(0)
-    max_len, new = 2048, 32
+    rng, rng_long = np.random.RandomState(0), np.random.RandomState(1)
+    new = 32
 
-    def req(rid, lo, hi):
-        L = int(rng.randint(lo, hi + 1))
-        return Request(rid=rid, prompt=rng.randint(
+    def req(rid, lo, hi, r=rng):
+        L = int(r.randint(lo, hi + 1))
+        return Request(rid=rid, prompt=r.randint(
             0, cfg.vocab_size, size=(L,)).astype(np.int32),
             max_new_tokens=new)
+
+    def steps(engines):             # (mixed, decode) steps and their walls
+        return np.array([(e.mixed_steps, e.decode_steps, e.mixed_wall_s,
+                          e.decode_wall_s) for e in engines]).sum(0)
 
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()
@@ -787,7 +1010,7 @@ def drive_pd(cfg, model, tag):
                            convertible=1)
     cl = PDCluster(cfg, model, pol, n_prefillers=1, n_decoders=1,
                    n_convertible=1, slots_per_decoder=4, max_len=max_len,
-                   chunk_size=256)
+                   chunk_size=256, max_instances=max_instances)
     transfers = []
     record = cl.transfers.record
 
@@ -804,34 +1027,41 @@ def drive_pd(cfg, model, tag):
     for i in range(8, 12):                           # ... then a burst
         reqs.append(req(i, 1024, 1536))
         cl.submit(reqs[-1])
+    for i, (lo, hi) in enumerate(long_pd):
+        reqs.append(req(12 + i, lo, hi, rng_long))
+        cl.submit(reqs[-1])
     cl.run_until_drained(max_steps=5000)
     torch.cuda.synchronize()
     pd_s = time.perf_counter() - t0
+    counts = steps(d.eng for d in cl.decoders + cl.convertibles)
+    shape = (f"{len(cl.prefillers)} prefillers, {len(cl.decoders)} decoders, "
+             f"{len(cl.convertibles)} convertible at the end")
+    pre_tok = sum(p.tokens_done for p in cl.prefillers)
+    pre_s = sum(p.wall_s for p in cl.prefillers)
+    del cl                          # its caches, before the Engine's
     eng = Engine(cfg, model, num_slots=4, max_len=max_len, chunk_size=256)
     direct = [req(100 + i, 600, 1100) for i in range(2)]
+    direct += [req(102 + i, lo, hi, rng_long)
+               for i, (lo, hi) in enumerate(long_direct)]
     for r in direct:
         eng.add_request(r)
     eng.run_until_drained()
     torch.cuda.synchronize()
     launches = dict(kops.LAUNCHES)
     # ... to here
-    engines = [d.eng for d in cl.decoders + cl.convertibles] + [eng]
+    mixed, dec, mixed_s, dec_s = counts + steps([eng])
     run = dict(
-        launches=launches, reqs=reqs, transfers=transfers, max_len=max_len,
+        launches=launches, reqs=reqs, direct=direct, transfers=transfers,
+        max_len=max_len,
         done=sum(len(r.output) == new for r in reqs + direct),
-        n=len(reqs) + len(direct),
-        mixed=sum(e.mixed_steps for e in engines),
-        dec_steps=sum(e.decode_steps for e in engines))
-    dec_ms = 1e3 * sum(e.decode_wall_s for e in engines) / max(
-        run["dec_steps"], 1)
-    mix_ms = 1e3 * sum(e.mixed_wall_s for e in engines) / max(run["mixed"], 1)
-    pre_tok = sum(p.tokens_done for p in cl.prefillers)
-    pre_s = sum(p.wall_s for p in cl.prefillers)
+        n=len(reqs) + len(direct), mixed=int(mixed), dec_steps=int(dec))
+    dec_ms = 1e3 * dec_s / max(dec, 1)
+    mix_ms = 1e3 * mixed_s / max(mixed, 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}] requests completed {run['done']}/{run['n']} "
-        f"(PD cluster {pd_s:.1f} s, {len(cl.prefillers)} prefillers, "
-        f"{len(cl.decoders)} decoders, {len(cl.convertibles)} convertible "
-        f"at the end)")
+        f"(PD cluster {pd_s:.1f} s, {shape}); prompt lengths "
+        f"{[len(r.prompt) for r in reqs]} (PD), "
+        f"{[len(r.prompt) for r in direct]} (convertible Engine)")
     log(f"[{tag}] prefiller: {pre_tok} tokens in {pre_s:.3f} s = "
         f"{pre_tok / max(pre_s, 1e-9):.0f} tok/s")
     log(f"[{tag}] decode steps {run['dec_steps']}, mean {dec_ms:.2f} ms; "
@@ -845,7 +1075,8 @@ def last_logits(cfg, model, prompt, max_len, plain=False):
     """One prompt's last-token logits, through the kernels or through their
     plain versions."""
     from repro_torch.models import init_state, prefill
-    toks = np.zeros((1, 1 << (len(prompt) - 1).bit_length()), np.int32)
+    toks = np.zeros((1, min(1 << (len(prompt) - 1).bit_length(), max_len)),
+                    np.int32)
     toks[0, :len(prompt)] = prompt
     out, _ = prefill(cfg, model, init_state(cfg, 1, max_len, "cuda"), toks,
                      [len(prompt)], plain_kernels=plain)
@@ -996,44 +1227,108 @@ def phase_rwkv():
           "rwkv payload sizes")
     profile_decode(cfg, model)
     profile_prefill(cfg, model)
-    check_rwkv_logits(cfg, model, run["reqs"][3].prompt, run["max_len"])
+    check_logits(cfg, model, run["reqs"][3].prompt, run["max_len"], "rwkv",
+                 "WKV6 kernel", ("rwkv_wkv_chunked",
+                                 lambda f: partial(f, chunk=8)),
+                 "in chunks of 8 vs of 16")
     return run["launches"]["wkv6"]
 
 
-def check_rwkv_logits(cfg, model, prompt, max_len):
-    """One prompt's last-token logits through the WKV6 kernel and through
-    the plain chunked WKV6.  In bf16 the two differ where the f32 WKV
-    results round to different bf16 values, and 32 layers amplify that; the
-    plain version's own sensitivity is shown by running it in chunks of 8
-    instead of 16 (the same function, another f32 order).  Checks: finite,
-    the same argmax in bf16; then the same model converted in place to f32
-    (same weights, full width and depth), where the kernel must agree
-    within 1e-3 of the largest |logit|."""
-    from functools import partial
+def phase_gemma():
+    """Gemma-2-9B at its published widths and depth (42 layers alternating
+    a 4096-token window and global attention, softcaps 50 / 30, D = 256),
+    bf16 from seed 0, on the main path's PD traffic plus one prompt of
+    4400-4800 tokens (max_len 5120; the Scaler boots at most 3 instances of
+    a kind, which bounds the caches at 7 GB a decoder), then a convertible
+    Engine with one prompt of 4300-4700 beside two of 600-1100, so that
+    chunks past position 4096 meet the window.  Every transfer must be
+    344,064 B per 128-rounded token.  The long PD prompt's last-token logits
+    through the kernels are held against the plain versions as RWKV-6's are
+    (check_logits): in bf16 this random-weight model turns the last bits of
+    any two roundings into different logits (the plain path against itself
+    with P in f32 shows it), so phase 3's bf16 rule cannot hold; in f32 the
+    kernels agree within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
 
+    cfg = get_config("gemma2_9b")
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    log(f"[gemma] {cfg.name}: {count_params(model) / 1e9:.2f}B params "
+        f"({cfg.num_layers}L d={cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim_}, window "
+        f"{cfg.sliding_window} on every other layer) made on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    run = drive_pd(cfg, model, "gemma", max_len=5120,
+                   long_pd=[(4400, 4800)], long_direct=[(4300, 4700)],
+                   max_instances=3)
+    launches = {n: run["launches"][n]
+                for n in ("chunked_prefill_attention", "decode_attention")}
+    want_bytes = [PAYLOAD_GEMMA * min(max(-(-L // 128) * 128, 8),
+                                      run["max_len"])
+                  for _, L in run["transfers"]]
+    sent = [b for b, _ in run["transfers"]]
+    long_ok = [len(r.output) == 32 for r in (run["reqs"][-1],
+                                             run["direct"][-1])]
+    log(f"[gemma] KV transfers {len(sent)}, {sum(sent)} bytes, for prompts "
+        f"of {sorted(L for _, L in run['transfers'])} tokens; each "
+        f"{PAYLOAD_GEMMA} B x rounded length: {sent == want_bytes}")
+    log(f"[gemma] the prompts past the window ({len(run['reqs'][-1].prompt)} "
+        f"PD, {len(run['direct'][-1].prompt)} convertible) completed: "
+        f"{long_ok}")
+    check(run["done"] == run["n"] and all(long_ok),
+          "gemma: not every request completed")
+    check(run["mixed"] > 0, "gemma: no mixed (convertible) step ran")
+    check(all(n > 0 for n in launches.values()), f"gemma launches {launches}")
+    check(len(sent) > 0 and sent == want_bytes, "gemma payload sizes")
+    profile_decode(cfg, model)
+    profile_prefill(cfg, model)
+    check_logits(cfg, model, run["reqs"][-1].prompt, run["max_len"], "gemma",
+                 "attention kernels, past the window",
+                 ("_sdpa", lambda f: lambda q, k, v, mask, scale, cap=0.0:
+                  f(q, k, v.float(), mask, scale, cap).to(q.dtype)),
+                 "with P and P.V in f32 vs P in bf16", bf16_argmax=False)
+    return launches
+
+
+def check_logits(cfg, model, prompt, max_len, tag, kernel, swap, swap_what,
+                 bf16_argmax=True):
+    """One prompt's last-token logits through the kernels and through their
+    plain versions.  In bf16 the two differ where f32 results round to
+    different bf16 values, and many layers amplify that; the plain path's
+    own sensitivity is shown by running it with `swap` = (attribute of
+    models.ops, a function of the original giving its stand-in): the same
+    function in another rounding, `swap_what`.  Checks: finite in bf16
+    (and, with `bf16_argmax`, the same argmax); then the same model
+    converted in place to f32 (same weights, full width and depth), where
+    the kernels must agree within 1e-3 of the largest |logit| with the same
+    argmax."""
     from repro_torch.models import ops as mops
     what = f"L={len(prompt)}"
     kern = last_logits(cfg, model, prompt, max_len)
     plain = last_logits(cfg, model, prompt, max_len, plain=True)
     _, same, finite = compare_logits(
-        kern, plain, "rwkv", f"{cfg.dtype}, WKV6 kernel vs plain ({what})")
-    plain16 = mops.rwkv_wkv_chunked
-    mops.rwkv_wkv_chunked = partial(plain16, chunk=8)
+        kern, plain, tag, f"{cfg.dtype}, {kernel} vs plain ({what})")
+    attr, stand_in = swap
+    orig = getattr(mops, attr)
+    setattr(mops, attr, stand_in(orig))
     try:
-        plain8 = last_logits(cfg, model, prompt, max_len, plain=True)
+        alt = last_logits(cfg, model, prompt, max_len, plain=True)
     finally:
-        mops.rwkv_wkv_chunked = plain16
-    compare_logits(plain8, plain, "rwkv",
-                   f"{cfg.dtype}, plain in chunks of 8 vs of 16 ({what})")
-    check(finite and same, "rwkv: bf16 kernel and plain logits disagree")
+        setattr(mops, attr, orig)
+    compare_logits(alt, plain, tag, f"{cfg.dtype}, plain {swap_what} ({what})")
+    check(finite and (same or not bf16_argmax),
+          f"{tag}: bf16 kernel and plain logits disagree")
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     model.float()
     share, same, finite = compare_logits(
         last_logits(cfg32, model, prompt, max_len),
-        last_logits(cfg32, model, prompt, max_len, plain=True), "rwkv",
-        f"f32 weights and activations, WKV6 kernel vs plain ({what})")
+        last_logits(cfg32, model, prompt, max_len, plain=True), tag,
+        f"f32 weights and activations, {kernel} vs plain ({what})")
     check(finite and same and share <= 1e-3,
-          "rwkv: f32 kernel and plain logits disagree")
+          f"{tag}: f32 kernel and plain logits disagree")
 
 
 def _device_by_kind(prof):
@@ -1132,29 +1427,36 @@ def phase_exact():
     from repro_torch.models import greedy_generate, init_params
     from repro_torch.serving import PDCluster, Request
 
-    for arch in ("llama31_8b", "rwkv6_3b"):
-        cfg = get_config(arch, smoke=True)
+    short = [7, 12, 5, 20, 9]
+    for arch, over, lens, max_len, what in (
+            ("llama31_8b", {}, short, 96, ""),
+            ("rwkv6_3b", {}, short, 96, ""),
+            ("gemma2_9b", {}, [70, 12, 90, 20, 9], 160,
+             ", prompts past the 64-token window"),
+            ("llama31_8b", {"kv_cache_dtype": "int8"}, short, 96,
+             ", int8 KV cache")):
+        cfg = get_config(arch, smoke=True).replace(**over)
         model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
         prof = profile(get_config(arch), InstanceSpec(CHIPS["h100"], 1))
         cl = PDCluster(cfg, model, TokenScalePolicy(prof, convertible=1),
                        n_prefillers=1, n_decoders=1, n_convertible=1,
-                       max_len=96)
+                       max_len=max_len)
         rng = np.random.RandomState(0)
         reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
                                                   size=(L,)).astype(np.int32),
                         max_new_tokens=6)
-                for i, L in enumerate([7, 12, 5, 20, 9])]
+                for i, L in enumerate(lens)]
         for r in reqs:
             cl.submit(r)
         cl.run_until_drained()
         same = [r.output == greedy_generate(cfg, model, r.prompt[None],
                                             [len(r.prompt)], 6)[0].tolist()
                 for r in reqs]
-        log(f"[exact] {cfg.name} f32 PD tokens equal greedy_generate on the "
-            f"card: {same}; transfers {cl.transfers.n_transfers}")
+        log(f"[exact] {cfg.name}{what} f32 PD tokens equal greedy_generate "
+            f"on the card: {same}; transfers {cl.transfers.n_transfers}")
         check(all(same) and cl.transfers.n_transfers > 0,
-              f"exact tokens ({arch})")
+              f"exact tokens ({arch}{what})")
 
 
 def main() -> int:
@@ -1164,15 +1466,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    errs, rows = phase_parity()
-    launches = phase_serve()
-    torch.cuda.empty_cache()
-    launches["paged_decode_attention"] = phase_paged()
-    torch.cuda.empty_cache()
-    launches["wkv6"] = phase_rwkv()
-    torch.cuda.empty_cache()
-    phase_exact()
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.empty_cache()
+        log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed(phase_build)
+    errs, rows = timed(phase_parity)
+    launches = timed(phase_serve)
+    launches["paged_decode_attention"] = timed(phase_paged)
+    launches["wkv6"] = timed(phase_rwkv)
+    for name, n in timed(phase_gemma).items():
+        launches[f"{name}_d256"] = n
+    timed(phase_exact)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),
@@ -1185,6 +1494,9 @@ def main() -> int:
            "wkv6":
            ("src/repro_torch/kernels/csrc/wkv6.cu",
             "src/repro/kernels/wkv6.py:32")}
+    # the same two kernels' D = 256 instantiations, on Gemma-2-9B's path
+    for name in ("chunked_prefill_attention", "decode_attention"):
+        src[f"{name}_d256"] = src[name]
     kernels = [dict(name=n, route="cuda", source=src[n][0],
                     replaces=src[n][1], launches=launches[n],
                     max_abs_err=errs[n], ms=rows[n]["ms"],

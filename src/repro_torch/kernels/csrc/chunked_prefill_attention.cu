@@ -46,11 +46,17 @@
 //    steps bound on outputs near zero (kernels/ref.py
 //    chunked_prefill_attention_split_p_ref shows both on the CPU); the pair
 //    keeps P to ~2^-16.  The row sum is taken from the f32 P.
+//  * D = 256 (Gemma): O is 128 f32 registers a thread, so Q's fragments
+//    are read from shared memory at each k-step instead of being held; the
+//    ring and Q take 168,960 B of shared memory, one block per SM (Gemma-2
+//    9B's 512-token prompt is 16 x 8 blocks: one wave on 132 SMs).
 //
 // f32 path (prefill_f32_kernel): the reference's 2e-5 needs f32 products
 // (TF32 keeps ~3 digits), so f32 inputs run on CUDA cores: one block per
 // (64-row q tile, head, batch), 256 threads as a 16 x 16 grid, tiles
-// widened to f32 in shared memory, one K/V tile of 16-byte loads ahead.
+// widened to f32 in shared memory, one K/V tile of 16-byte loads ahead
+// (at D = 256 none ahead: the loads would take 128 registers a thread;
+// the tiles take 214,016 B of shared memory, one block per SM).
 //
 // wgmma + TMA (warp-specialised producer, 64-row warpgroup tiles) is the
 // next step for the bf16 path.
@@ -131,6 +137,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   constexpr int NT = kBK / 8;    // score n-tiles (8 keys) per tile
   constexpr int DT = D / 8;      // output n-tiles (8 columns)
   constexpr int KS = D / 16;     // k-steps of Q K^T
+  // Q in registers up to D = 128 (KS x 4 a thread); at D = 256 the O
+  // accumulator alone is 128 registers a thread, so Q's fragment is read
+  // from shared memory at each k-step instead (one more ldmatrix per 8 of
+  // K's and V's).
+  constexpr bool kQInRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sKV = sQ + kBM * LD;  // stage s: K, then V, each kBK x LD
@@ -188,7 +199,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t qf[KS][4];
+  // This warp's Q fragment for k-step ks, from shared memory.
+  auto q_frag = [&](int ks, uint32_t (&r)[4]) {
+    ldsm_x4(r, sQ + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                   ks * 16 + (lane >> 4) * 8);
+  };
+  uint32_t qf[kQInRegs ? KS : 1][4];
 
   for (int it = 0; it < ntiles; ++it) {
     const int kb = kb0 + it * kBK;
@@ -200,11 +216,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile it (and Q) landed for every thread
-    if (it == 0) {
+    if constexpr (kQInRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], sQ + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                            ks * 16 + (lane >> 4) * 8);
+        for (int ks = 0; ks < KS; ++ks) q_frag(ks, qf[ks]);
+      }
     }
     const __nv_bfloat16* sK = sKV + (size_t)(it & 1) * 2 * kBK * LD;
     const __nv_bfloat16* sV = sK + kBK * LD;
@@ -217,13 +233,20 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
+      } else {
+        q_frag(ks, a);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bf[4];
         ldsm_x4(bf, sK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                         ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+        mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -421,17 +444,30 @@ __global__ void __launch_bounds__(THREADS)
   // K and V rows of one position are (Hkv * D) apart; this head's start:
   const size_t kv_base = ((size_t)b * Skv * Hkv + hk) * D;
   const int stride = Hkv * D;
+  // Up to D = 128 the next K/V tile's loads fly in registers during this
+  // tile's compute (2 x D / 4 registers a thread); at D = 256 that would be
+  // 128 registers beside the 64 of acc, so each tile is loaded when needed.
+  constexpr bool kPrefetch = D <= 128;
   RowTile<float, D, BK, THREADS> tk, tv;
   int kb = (k_lo / BK) * BK;
-  tk.load_rows(k, kv_base, stride, kb, k_lo, k_hi - 1);
-  tv.load_rows(v, kv_base, stride, kb, k_lo, k_hi - 1);
+  if constexpr (kPrefetch) {
+    tk.load_rows(k, kv_base, stride, kb, k_lo, k_hi - 1);
+    tv.load_rows(v, kv_base, stride, kb, k_lo, k_hi - 1);
+  }
 
   for (; kb < k_hi; kb += BK) {
     __syncthreads();  // sQ written / previous tile's sK, sV, sP consumed
-    tk.store_rows(sK);
-    tv.store_rows(sV);
+    if constexpr (kPrefetch) {
+      tk.store_rows(sK);
+      tv.store_rows(sV);
+    } else {
+      tk.load_rows(k, kv_base, stride, kb, k_lo, k_hi - 1);
+      tk.store_rows(sK);
+      tk.load_rows(v, kv_base, stride, kb, k_lo, k_hi - 1);
+      tk.store_rows(sV);
+    }
     __syncthreads();
-    if (kb + BK < k_hi) {  // the next tile's loads fly during this compute
+    if (kPrefetch && kb + BK < k_hi) {  // loads fly during this compute
       tk.load_rows(k, kv_base, stride, kb + BK, k_lo, k_hi - 1);
       tv.load_rows(v, kv_base, stride, kb + BK, k_lo, k_hi - 1);
     }
@@ -555,6 +591,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
     REPRO_PREFILL_CASE(32)
     REPRO_PREFILL_CASE(64)
     REPRO_PREFILL_CASE(128)
+    REPRO_PREFILL_CASE(256)
     default:
       return -1;
   }

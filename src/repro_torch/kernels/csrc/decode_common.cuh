@@ -23,7 +23,8 @@
 // Inside a split: K/V tiles of TR rows stay in their input type in a ring of
 // kStages shared-memory slots, filled by 16-byte cp.async (.cg, L2 only), and
 // are converted to f32 at use.  Q lives in registers.  Each warp takes its
-// own rows of every tile (LPR lanes of 16 bytes per row) and keeps its own
+// own rows of every tile (up to a warp's 32 lanes per row, 16 bytes or, for
+// f32 at D = 256, twice 16 bytes a lane) and keeps its own
 // online softmax; the warps' states are merged once, at the end of the
 // split, so the tile loop waits at one barrier per tile.  A row outside
 // [lo, hi], or in an unallocated page, is never loaded (cp.async with source
@@ -64,18 +65,28 @@ struct DecodeParams {
   int split, nsplit;
 };
 
-// How a (TR, D) tile is cut: V elements per 16-byte chunk, LPR lanes per
-// row, RPW rows per warp step, STEPS steps per warp and tile.
+// How a (TR, D) tile is cut: V elements per 16-byte chunk, CPR chunks per
+// row, LPR lanes per row (at most a warp), CPL chunks per lane and row
+// (W = CPL * V values), RPW rows per warp step, STEPS steps per warp and
+// tile.  A tile has at least 32 rows (or one step of every warp) but holds
+// at most 16 KB of K, so the 4-slot K/V ring stays at 128 KB at D = 256
+// (bf16: 32 rows, 8 values a lane; f32: 16 rows, two chunks a lane).
 template <typename T, int D>
 struct Tile {
   static constexpr int V = 16 / sizeof(T);
-  static constexpr int LPR = D / V;
+  static constexpr int CPR = D / V;
+  static constexpr int LPR = CPR < 32 ? CPR : 32;
+  static constexpr int CPL = CPR / LPR;
+  static constexpr int W = CPL * V;
   static constexpr int RPW = 32 / LPR;
-  static constexpr int TR = RPW * kWarps > 32 ? RPW * kWarps : 32;
+  static constexpr int CAP = 16384 / (D * (int)sizeof(T));
+  static constexpr int TR0 = CAP < 32 ? CAP : 32;
+  static constexpr int TR = RPW * kWarps > TR0 ? RPW * kWarps : TR0;
   static constexpr int STEPS = TR / (RPW * kWarps);
-  static constexpr int CHUNKS = TR * LPR;  // 16-byte chunks of one K tile
+  static constexpr int CHUNKS = TR * CPR;  // 16-byte chunks of one K tile
   static constexpr int ELEMS = TR * D;
-  static_assert(LPR >= 1 && LPR <= 32 && kSplitQuantum % TR == 0, "tile");
+  static_assert(CPR % LPR == 0 && kSplitQuantum % TR == 0, "tile");
+  static_assert(TR % (RPW * kWarps) == 0, "tile steps");
   static_assert(CHUNKS % kThreads == 0, "tile chunks");
 };
 
@@ -105,8 +116,8 @@ template <typename T, int D, int GMAX, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const DecodeParams p) {
   using S = Tile<T, D>;
-  constexpr int V = S::V, LPR = S::LPR, RPW = S::RPW, TR = S::TR;
-  constexpr int STEPS = S::STEPS;
+  constexpr int V = S::V, CPR = S::CPR, LPR = S::LPR, RPW = S::RPW;
+  constexpr int CPL = S::CPL, W = S::W, TR = S::TR, STEPS = S::STEPS;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   int* rows = reinterpret_cast<int*>(smem + ring_bytes<T, D, GMAX>());
@@ -118,17 +129,23 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / LPR, li = lane % LPR;
 
+  // This lane's columns of a row: chunks li + c * LPR, c < CPL, V values
+  // each; value c * V + e of a lane's W is column col(c) + e.
+  auto col = [&](int c) { return (li + c * LPR) * V; };
   // q's loads go out with cur_lens', before anything waits on either.
-  float q[GMAX][V];
+  float q[GMAX][W];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
-    if (g < gn) {
-      unpack<T>(load16(static_cast<const T*>(p.q) +
-                       ((size_t)b * p.Hq + hk * p.G + g0 + g) * D + li * V),
-                q[g]);
-    } else {
 #pragma unroll
-      for (int e = 0; e < V; ++e) q[g][e] = 0.f;
+    for (int c = 0; c < CPL; ++c) {
+      if (g < gn) {
+        unpack<T>(load16(static_cast<const T*>(p.q) +
+                         ((size_t)b * p.Hq + hk * p.G + g0 + g) * D + col(c)),
+                  q[g] + c * V);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) q[g][c * V + e] = 0.f;
+      }
     }
   }
   int lo, hi;
@@ -165,13 +182,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  float m[GMAX], l[GMAX], o[GMAX][V];
+  float m[GMAX], l[GMAX], o[GMAX][W];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < V; ++e) o[g][e] = 0.f;
+    for (int e = 0; e < W; ++e) o[g][e] = 0.f;
   }
 
   const int t0 = first <= last ? (first - s0) / TR : 0;
@@ -182,11 +199,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < S::CHUNKS / kThreads; ++u) {
       const int c = tid + u * kThreads;
-      const int row = c / LPR, col = (c % LPR) * V;
+      const int row = c / CPR, cc = (c % CPR) * V;
       const int ri = row_index(t * TR + row);
-      const size_t off = ri >= 0 ? ((size_t)ri * p.Hkv + hk) * D + col : 0;
-      cp_async16(dk + row * D + col, K + off, ri >= 0);
-      cp_async16(dv + row * D + col, Vc + off, ri >= 0);
+      const size_t off = ri >= 0 ? ((size_t)ri * p.Hkv + hk) * D + cc : 0;
+      cp_async16(dk + row * D + cc, K + off, ri >= 0);
+      cp_async16(dv + row * D + cc, Vc + off, ri >= 0);
     }
   };
 
@@ -215,13 +232,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < STEPS; ++j) {
       const int row = (warp * STEPS + j) * RPW + rg;
       live[j] = row_index(t * TR + row) >= 0;
-      float kf[V];
-      unpack<T>(*reinterpret_cast<const uint4*>(sk + row * D + li * V), kf);
+      float kf[W];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        unpack<T>(*reinterpret_cast<const uint4*>(sk + row * D + col(c)),
+                  kf + c * V);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         float acc = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc = fmaf(q[g][e], kf[e], acc);
+        for (int e = 0; e < W; ++e) acc = fmaf(q[g][e], kf[e], acc);
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1)
           acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -251,17 +271,20 @@ __global__ void __launch_bounds__(kThreads)
       l[g] = l[g] * alpha + ps;
       m[g] = mx;
 #pragma unroll
-      for (int e = 0; e < V; ++e) o[g][e] *= alpha;
+      for (int e = 0; e < W; ++e) o[g][e] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
       const int row = (warp * STEPS + j) * RPW + rg;
-      float vf[V];
-      unpack<T>(*reinterpret_cast<const uint4*>(sv + row * D + li * V), vf);
+      float vf[W];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        unpack<T>(*reinterpret_cast<const uint4*>(sv + row * D + col(c)),
+                  vf + c * V);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
-        for (int e = 0; e < V; ++e) o[g][e] = fmaf(s[j][g], vf[e], o[g][e]);
+        for (int e = 0; e < W; ++e) o[g][e] = fmaf(s[j][g], vf[e], o[g][e]);
       }
     }
   }
@@ -279,7 +302,7 @@ __global__ void __launch_bounds__(kThreads)
       const float a = exp2f(m[g] - mx), c = exp2f(mo - mx);
       l[g] = l[g] * a + lo2 * c;
 #pragma unroll
-      for (int e = 0; e < V; ++e)
+      for (int e = 0; e < W; ++e)
         o[g][e] =
             o[g][e] * a + __shfl_xor_sync(0xffffffffu, o[g][e], off) * c;
       m[g] = mx;
@@ -294,9 +317,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g < gn) {
-        float* dst = so + (warp * GMAX + g) * D + li * V;
+        float* dst = so + (warp * GMAX + g) * D;
 #pragma unroll
-        for (int e = 0; e < V; ++e) dst[e] = o[g][e];
+        for (int c = 0; c < CPL; ++c)
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[col(c) + e] = o[g][c * V + e];
         if (li == 0) {
           sml[(warp * GMAX + g) * 2] = m[g];
           sml[(warp * GMAX + g) * 2 + 1] = l[g];
@@ -387,6 +412,8 @@ int dispatch_decode_d(const DecodeParams& p, cudaStream_t s) {
       return launch_decode<T, 64, GMAX, PAGED>(p, s);
     case 128:
       return launch_decode<T, 128, GMAX, PAGED>(p, s);
+    case 256:
+      return launch_decode<T, 256, GMAX, PAGED>(p, s);
     default:
       return -1;
   }

@@ -22,7 +22,7 @@ LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "wkv6": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def reset_launches():

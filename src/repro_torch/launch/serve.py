@@ -10,7 +10,7 @@ H100 instance:
         --requests 32 [--device cpu]
 
 ``--arch`` takes any config the port has: llama-3.1-8b, qwen-2.5-32b,
-rwkv6-3b.
+rwkv6-3b, gemma2-9b, gemma-2b, yi-9b, qwen2-0.5b, musicgen-large.
 """
 from __future__ import annotations
 

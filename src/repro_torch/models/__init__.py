@@ -1,6 +1,7 @@
 from repro_torch.models.params import (  # noqa: F401
-    Transformer, count_params, from_jax_params, init_params, init_state,
+    Transformer, abstract_params, count_params, from_jax_params, init_params,
+    init_state,
 )
 from repro_torch.models.transformer import (  # noqa: F401
-    decode_step, greedy_generate, prefill,
+    decode_step, forward_train, greedy_generate, prefill,
 )

@@ -8,8 +8,12 @@ channel-mix.  ``apply_attn`` routes attention through the kernel wrappers
 the reference does with its Pallas switch on.  With ``ApplyCtx.plain_kernels``
 they run the masked ``_sdpa`` and ``rwkv_wkv_chunked`` instead, which is how
 the reference computes by default and what the kernel path is compared
-with.  Accumulations are f32; activations run in cfg.dtype.  The state
-(KV caches, WKV and token-shift states) is updated in place.
+with.  Train mode (``forward_train``) has no state: attention runs over the
+sequence's own keys, through the prefill kernel at offset 0.  An int8 KV
+cache is quantised on write (``_quant_kv``) and dequantised to the
+activation dtype before attention, so the kernels see bf16 / f32.
+Accumulations are f32; activations run in cfg.dtype.  The state (KV
+caches, WKV and token-shift states) is updated in place.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ NEG_INF = -2.0 ** 30
 
 @dataclass
 class ApplyCtx:
-    mode: str                      # "prefill" | "decode"
+    mode: str                      # "train" | "prefill" | "decode"
     positions: torch.Tensor        # (B, S) int32 absolute token positions
     write_idx: np.ndarray          # (B,) host copy of positions[:, 0]
     lengths: Optional[torch.Tensor] = None   # (B,) prefill: valid lengths
@@ -77,6 +81,15 @@ def _act(x, kind: str):
     return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
 
 
+def _quant_kv(x):
+    """(B,S,H,D) -> (int8 values, f32 per-(token, head) scales): the
+    reference's absmax / 127 with a 1e-8 floor, round half to even."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def _update_cache(cache, new, idx: np.ndarray, rows: torch.Tensor):
     """cache (B, L, ...) <- new (B, S, ...) at per-row offsets `idx`, in
     place; `rows` (B, S) are the device positions idx[b] + t.  The
@@ -119,14 +132,39 @@ def _sdpa(q, k, v, mask, scale, cap: float = 0.0):
 def _kernel_attn(cfg: ModelConfig, q, kc, vc, ctx: ApplyCtx, scale):
     """Attention through the kernel wrappers: decode -> decode_attention,
     prefill and convertible chunks -> chunked_prefill_attention with
-    offset = the chunk's start."""
+    offset = the chunk's start; train -> the same at offset 0 over the
+    sequence's keys, lengths or the full length."""
     if ctx.mode == "decode":
         return kops.decode_attention_op(
             q[:, 0], kc, vc, ctx.positions[:, 0], window=ctx.window,
             softcap=float(cfg.attn_softcap), scale=scale)[:, None]
+    lengths = ctx.lengths
+    if lengths is None:
+        lengths = torch.full((q.shape[0],), kc.shape[1], dtype=torch.int32,
+                             device=q.device)
     return kops.prefill_attention(
-        q, kc, vc, ctx.positions[:, 0], ctx.lengths, window=ctx.window,
+        q, kc, vc, ctx.positions[:, 0], lengths, window=ctx.window,
         softcap=float(cfg.attn_softcap), scale=scale)
+
+
+def _write_kv(cfg: ModelConfig, state, k, v, ctx: ApplyCtx, dtype):
+    """Write the new k/v into the cache at the chunk's offset, in place, and
+    return the whole cache as attention reads it: as stored, or with an int8
+    cache the values times their scales in the activation dtype (the
+    reference's dequantisation)."""
+    if cfg.kv_cache_dtype != "int8":
+        _update_cache(state["k"], k, ctx.write_idx, ctx.positions)
+        _update_cache(state["v"], v, ctx.write_idx, ctx.positions)
+        return state["k"], state["v"]
+    out = []
+    for name, new in (("k", k), ("v", v)):
+        vals, scales = _quant_kv(new)
+        _update_cache(state[name], vals, ctx.write_idx, ctx.positions)
+        _update_cache(state[f"{name}_scale"], scales, ctx.write_idx,
+                      ctx.positions)
+        out.append(state[name].to(dtype)
+                   * state[f"{name}_scale"][..., None].to(dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +185,12 @@ def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     v = v.reshape(B, S, nkv, dh)
     scale = cfg.query_scale or dh ** -0.5
 
-    # write offset = absolute position of the first new token (0 for a
-    # whole prompt, the chunk start for a chunk, cur_len for decode)
-    kc, vc = state["k"], state["v"]
-    _update_cache(kc, k, ctx.write_idx, ctx.positions)
-    _update_cache(vc, v, ctx.write_idx, ctx.positions)
+    if ctx.mode == "train":
+        kc, vc = k, v
+    else:
+        # write offset = absolute position of the first new token (0 for a
+        # whole prompt, the chunk start for a chunk, cur_len for decode)
+        kc, vc = _write_kv(cfg, state, k, v, ctx, x.dtype)
     if ctx.plain_kernels:
         k_pos = torch.arange(kc.shape[1], device=x.device)[None]
         mask = _causal_mask(ctx.positions, k_pos, ctx.lengths, ctx.window)

@@ -9,9 +9,10 @@ leaves under a leading ``num_blocks`` dim for ``lax.scan``, the port keeps
 one ``DecoderLayer`` module per layer and loops over them.
 
 The state is one dict per layer, updated in place by the forward pass:
-``{"k", "v"}`` (B, max_len, Hkv, D) caches for an attention layer, and
-``{"wkv"}`` (B, H, K, K) f32 plus ``{"shift_t", "shift_c"}`` (B, d) for an
-RWKV-6 layer.
+``{"k", "v"}`` (B, max_len, Hkv, D) caches for an attention layer (with
+``kv_cache_dtype="int8"``, int8 values and f32 ``{"k_scale", "v_scale"}``
+(B, max_len, Hkv) per-(token, head) scales), and ``{"wkv"}`` (B, H, K, K)
+f32 plus ``{"shift_t", "shift_c"}`` (B, d) for an RWKV-6 layer.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
 
 
 @dataclass(frozen=True)
@@ -110,10 +112,6 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is ported in a later slice "
             "(ROADMAP A8)")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache is ported in a later slice "
-            "(ROADMAP A8)")
     for spec in cfg.layer_specs:
         if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
             raise NotImplementedError(
@@ -168,6 +166,12 @@ class Transformer(_Leaves):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """The model with every leaf's shape and dtype on the ``meta`` device:
+    no memory is allocated (the reference's ShapeDtypeStruct tree)."""
+    return Transformer(cfg, "meta")
 
 
 def _leaf_modules(model: Transformer):
@@ -245,15 +249,22 @@ def _layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                                        device=device)}
     dt = DTYPES[cfg.kv_cache_dtype or cfg.dtype]
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    st = {"k": torch.zeros(shape, dtype=dt, device=device),
+          "v": torch.zeros(shape, dtype=dt, device=device)}
+    if dt == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            st[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device)
+    return st
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> list[dict[str, torch.Tensor]]:
     """Zeroed per-layer state: (batch, max_len, Hkv, D) KV caches in
-    cfg.dtype for attention; for RWKV-6 the f32 (batch, H, K, K) WKV state
-    and the (batch, d) token-shift states in cfg.dtype (no max_len)."""
+    cfg.kv_cache_dtype or cfg.dtype for attention (int8 adds the f32
+    (batch, max_len, Hkv) k_scale / v_scale); for RWKV-6 the f32 (batch, H,
+    K, K) WKV state and the (batch, d) token-shift states in cfg.dtype (no
+    max_len)."""
     check_supported(cfg)
     return [_layer_state(cfg, spec, batch, max_len, device)
             for spec in cfg.layer_specs]

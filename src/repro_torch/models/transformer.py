@@ -6,6 +6,8 @@ Python loop over the layers takes the place of ``lax.scan``, and the state
 the state, as the reference does).  Lengths, chunk starts and cache
 lengths are taken on the host, where the serving loop keeps them.
 
+    forward_train(cfg, params, tokens, lengths=None)
+        -> (logits (B, S, V) f32, aux)
     prefill(cfg, params, state, tokens, lengths, start=None)
         -> (last_logits (B, V) f32, state)
     decode_step(cfg, params, state, last_tokens, cur_lens)
@@ -71,6 +73,30 @@ def _backbone(cfg: ModelConfig, params: Transformer, x, state,
     for layer, st in zip(params.layers, state):
         x = _apply_layer(cfg, layer, x, st, ctx)
     return x
+
+
+@torch.no_grad()
+def forward_train(cfg: ModelConfig, params: Transformer, tokens,
+                  lengths=None):
+    """Full-sequence causal forward with no cache, as the reference's
+    ``forward_train``: every position's logits.  `lengths` (B,) masks keys
+    at or past each row's valid length.  Attention goes through the prefill
+    kernel at offset 0 (on the CPU its plain version).  A forward pass
+    only: the reference's kernels have no VJP, and the gradient path is a
+    later slice.
+    Returns (logits (B, S, V) f32, aux), aux = 0 for dense FFNs."""
+    if any(s.mixer == "rwkv" for s in cfg.layer_specs):
+        raise NotImplementedError(
+            f"{cfg.name}: forward_train over recurrent layers is ported in a "
+            "later slice (ROADMAP A10)")
+    dev = params.device
+    tokens = _tokens(tokens, dev)
+    B, S = tokens.shape
+    ctx = _ctx("train", np.zeros(B, np.int64), S, dev, lengths)
+    x = _backbone(cfg, params, _embed(cfg, params, tokens),
+                  [None] * len(params.layers), ctx)
+    return _unembed(cfg, params, x), torch.zeros((), dtype=torch.float32,
+                                                 device=dev)
 
 
 def _ctx(mode, starts: np.ndarray, S: int, device, lengths=None,

@@ -639,3 +639,179 @@ def test_paged_kernel_never_reads_foreign_pages(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 256 (Gemma, Gemma-2)
+# ---------------------------------------------------------------------------
+
+D256_PREFILL = {
+    # id: (B, Sq, Skv, Hq, Hkv, window, softcap, offsets, lengths)
+    "gemma2-prompt": (1, 512, 2048, 16, 8, 0, 50.0, [0], [512]),
+    "gemma2-window-bites": (1, 256, 4864, 16, 8, 4096, 50.0, [4352],
+                            [4600]),
+    "gemma2-ragged-batch": (2, 96, 320, 16, 8, 64, 50.0, [100, 0],
+                            [196, 60]),
+    "gemma-2b-mqa": (2, 200, 512, 8, 1, 0, 0.0, [0, 300], [200, 500]),
+    # rows 20.. of the window-8 layer see no key: the mean of v over Skv
+    "row-without-visible-key": (1, 40, 96, 4, 2, 8, 50.0, [15], [20]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(D256_PREFILL))
+def test_prefill_kernel_d256(cuda, case, dtype):
+    """Both prefill paths at D = 256 (bf16: tensor cores with Q's fragments
+    from shared memory; f32: CUDA cores without the register prefetch), with
+    Gemma-2's softcap, a window that bites, MQA and a row with no visible
+    key: bf16 at 3e-2 and 2e-5 + 2 bf16 steps of the plain version and of
+    the plain version with the kernel's rounding, f32 at 2e-5; two calls
+    bit-equal."""
+    B, Sq, Skv, Hq, Hkv, window, cap, offs, lens = D256_PREFILL[case]
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = _randn(g, B, Sq, Hq, 256, dtype=dtype)
+    k = _randn(g, B, Skv, Hkv, 256, dtype=dtype)
+    v = _randn(g, B, Skv, Hkv, 256, dtype=dtype)
+    o = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = kops.prefill_attention(q, k, v, o, n, window=window, softcap=cap)
+    want = ref.chunked_prefill_attention_ref(q, k, v, o, n, window=window,
+                                             softcap=cap)
+    if dtype == torch.bfloat16:
+        for w in (want, ref.chunked_prefill_attention_split_p_ref(
+                q, k, v, o, n, window=window, softcap=cap)):
+            _close(out, w, 3e-2)
+            _within_bf16_steps(out, w)
+    else:
+        _close(out, want, 2e-5)
+    again = kops.prefill_attention(q, k, v, o, n, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+D256_DECODE = {
+    # id: (L, Hq, Hkv, window, softcap, cur_lens)
+    "gemma2-window-bites": (5120, 16, 8, 4096, 50.0, [0, 700, 1500, 4600]),
+    "gemma-2b-mqa": (1024, 8, 1, 0, 0.0, [1023, 0, 500]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(D256_DECODE))
+def test_decode_kernel_d256(cuda, case, dtype):
+    """The split-KV decode kernel at D = 256 (bf16: 8 values a lane; f32:
+    two 16-byte chunks a lane, 16-row tiles): against the plain version and
+    the plain split-and-merge version, and bit-equal to itself."""
+    L, Hq, Hkv, window, cap, curs = D256_DECODE[case]
+    B = len(curs)
+    g = torch.Generator(device=cuda).manual_seed(L + Hq)
+    q = _randn(g, B, Hq, 256, dtype=dtype)
+    k = _randn(g, B, L, Hkv, 256, dtype=dtype)
+    v = _randn(g, B, L, Hkv, 256, dtype=dtype)
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    out = kops.decode_attention_op(q, k, v, cur, window=window, softcap=cap)
+    split, nsplit = kops.decode_split(L, B, Hkv)
+    assert nsplit > 1
+    for want in (ref.decode_attention_ref(q, k, v, cur, window=window,
+                                          softcap=cap),
+                 ref.decode_attention_split_ref(q, k, v, cur, split,
+                                                window=window, softcap=cap)):
+        if dtype == torch.bfloat16:
+            _close(out, want, 3e-2)
+            _within_bf16_steps(out, want)
+        else:
+            _close(out, want, 2e-5)
+    again = kops.decode_attention_op(q, k, v, cur, window=window,
+                                     softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_kernel_d256(cuda, dtype):
+    """Gemma-2-9B's heads (16 / 8, D = 256) over interleaved 128-token
+    pages: the plain version, its split-and-merge form, and bit for bit the
+    contiguous decode kernel on the gathered KV."""
+    g = torch.Generator(device=cuda).manual_seed(256)
+    cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
+    tables = _interleaved_pages(cuda, (cur + 1).tolist(), 40)
+    q = _randn(g, 4, 16, 256, dtype=dtype)
+    pk = _randn(g, 40, 128, 8, 256, dtype=dtype)
+    pv = _randn(g, 40, 128, 8, 256, dtype=dtype)
+    out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    split, _ = kops.decode_split(tables.shape[1] * 128, 4, 8, 128)
+    for want in (ref.paged_decode_attention_ref(q, pk, pv, tables, cur),
+                 ref.paged_decode_attention_split_ref(q, pk, pv, tables, cur,
+                                                      split)):
+        if dtype == torch.bfloat16:
+            _close(out, want, 3e-2)
+            _within_bf16_steps(out, want)
+        else:
+            _close(out, want, 2e-5)
+    safe = tables.clamp(min=0).long()
+    contiguous = kops.decode_attention_op(
+        q, pk[safe].reshape(4, -1, 8, 256), pv[safe].reshape(4, -1, 8, 256),
+        cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out, contiguous)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("llama31_8b", {}), ("gemma2_9b", {}),
+    ("gemma2_9b", {"head_dim": 256, "query_scale": 1.0 / 16.0})],
+    ids=["llama", "gemma2", "gemma2-d256"])
+def test_forward_train_on_card_matches_plain(cuda, arch, over):
+    """forward_train's logits through the prefill kernel (offset 0, the
+    rows' lengths; gemma2's window of 64 bites at 80 tokens) against the
+    same model on the CPU, where attention runs the plain version, f32
+    SMOKE weights: 2e-4."""
+    import copy
+
+    from repro_torch import models as tm
+    cfg = get_config(arch, smoke=True).replace(**over)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 80))
+    lens = [80, 70]
+    kops.reset_launches()
+    got, _ = tm.forward_train(cfg, model, toks, lengths=lens)
+    torch.cuda.synchronize()
+    assert kops.LAUNCHES["chunked_prefill_attention"] == cfg.num_layers
+    want, _ = tm.forward_train(cfg, copy.deepcopy(model).cpu(), toks,
+                               lengths=lens)
+    _close(got.cpu(), want, 2e-4)
+
+
+@pytest.mark.parametrize("arch,over,lens,max_len,chunk", [
+    ("gemma2_9b", {}, (70, 12, 90, 66), 112, 32),
+    ("llama31_8b", {"kv_cache_dtype": "int8"}, (7, 12, 5, 20), 64, 8)],
+    ids=["gemma2-window", "llama-int8"])
+def test_dense_family_engine_on_card_matches_greedy(cuda, arch, over, lens,
+                                                    max_len, chunk):
+    """gemma2 SMOKE with prompts past its 64-token window, and the int8
+    cache: the convertible engine's tokens equal the port's own greedy
+    generation on the card, through both attention kernels."""
+    from repro_torch import models as tm
+    from repro_torch.serving import Engine, Request
+    cfg = get_config(arch, smoke=True).replace(**over)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(L,)).astype(np.int32)
+               for L in lens]
+    kops.reset_launches()
+    eng = Engine(cfg, model, num_slots=2, max_len=max_len, chunk_size=chunk)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_drained()
+    assert eng.mixed_steps > 0
+    assert kops.LAUNCHES["chunked_prefill_attention"] > 0, kops.LAUNCHES
+    assert kops.LAUNCHES["decode_attention"] > 0, kops.LAUNCHES
+    for r, p in zip(reqs, prompts):
+        want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6)
+        assert r.output == want[0].tolist(), r.rid

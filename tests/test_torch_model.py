@@ -16,7 +16,7 @@ from repro import models as jm
 from repro.configs import get_config as jget_config
 from repro.models.params import model_leaves
 from repro_torch import models as tm
-from repro_torch.configs import get_config
+from repro_torch.configs import LayerSpec, get_config
 from repro_torch.models import ops as tmops
 
 ARCHS = ["llama31_8b", "qwen25_32b"]
@@ -179,4 +179,5 @@ def test_unported_layers_name_a_later_slice():
     with pytest.raises(NotImplementedError, match="later slice"):
         tm.Transformer(cfg.replace(kv_lora_rank=64), "meta")
     with pytest.raises(NotImplementedError, match="later slice"):
-        tm.init_state(cfg.replace(kv_cache_dtype="int8"), 1, 8, "cpu")
+        tm.init_state(cfg.replace(block_pattern=(LayerSpec(mixer="mamba"),)),
+                      1, 8, "cpu")

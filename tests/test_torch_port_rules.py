@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b", "rwkv6_3b",
+                                  "gemma2_9b", "gemma_2b", "yi_9b",
+                                  "qwen2_0_5b", "musicgen_large"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(arch, smoke):
     assert dataclasses.asdict(get_config(arch, smoke)) \
