@@ -9,8 +9,9 @@ H100 instance:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.1-8b \\
         --requests 32 [--device cpu]
 
-``--arch`` takes any config the port has: llama-3.1-8b, qwen-2.5-32b,
-rwkv6-3b, gemma2-9b, gemma-2b, yi-9b, qwen2-0.5b, musicgen-large.
+``--arch`` takes any of the registry's configs (``configs.ARCH_IDS``) but
+llama-3.2-vision-11b, whose requests need an image, as the reference's
+launcher's do.
 """
 from __future__ import annotations
 

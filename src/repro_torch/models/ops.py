@@ -1,19 +1,23 @@
 """Layer math of the port's decoder layers, in PyTorch.
 
-The counterpart of the reference package's ``models/ops.py`` for the
-layers the port has: attention + dense FFN, and RWKV-6 time-mix +
-channel-mix.  ``apply_attn`` routes attention through the kernel wrappers
-(``kernels/ops.py``) the way the reference's ``_pallas_attn`` does, and
-``apply_rwkv_tm`` sends every prefill or chunk (S > 1) to ``wkv6_op`` as
-the reference does with its Pallas switch on.  With ``ApplyCtx.plain_kernels``
-they run the masked ``_sdpa`` and ``rwkv_wkv_chunked`` instead, which is how
-the reference computes by default and what the kernel path is compared
-with.  Train mode (``forward_train``) has no state: attention runs over the
-sequence's own keys, through the prefill kernel at offset 0.  An int8 KV
-cache is quantised on write (``_quant_kv``) and dequantised to the
-activation dtype before attention, so the kernels see bf16 / f32.
-Accumulations are f32; activations run in cfg.dtype.  The state (KV
-caches, WKV and token-shift states) is updated in place.
+The counterpart of the reference package's ``models/ops.py``: attention
+(GQA, local, softcaps, QKV bias, the int8 KV cache), MLA latent attention,
+cross-attention to image embeddings, the dense and MoE FFNs, Mamba, and
+RWKV-6 time-mix + channel-mix.  ``apply_attn`` routes attention through
+the kernel wrappers (``kernels/ops.py``) the way the reference's
+``_pallas_attn`` does, and ``apply_rwkv_tm`` sends every prefill or chunk
+(S > 1) to ``wkv6_op`` as the reference does with its Pallas switch on.
+With ``ApplyCtx.plain_kernels`` they run the masked ``_sdpa`` and
+``rwkv_wkv_chunked`` instead, which is how the reference computes by
+default and what the kernel path is compared with.  MLA, cross-attention,
+MoE and Mamba have no kernel in the reference either: they are plain
+torch ops on every device.  Train mode (``forward_train``) has no state:
+attention runs over the sequence's own keys, through the prefill kernel
+at offset 0.  An int8 KV cache is quantised on write (``_quant_kv``) and
+dequantised to the activation dtype before attention, so the kernels see
+bf16 / f32.  Accumulations are f32; activations run in cfg.dtype.  The
+state (KV caches, latent caches, image keys / values, recurrent states) is
+updated in place.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ class ApplyCtx:
     positions: torch.Tensor        # (B, S) int32 absolute token positions
     write_idx: np.ndarray          # (B,) host copy of positions[:, 0]
     lengths: Optional[torch.Tensor] = None   # (B,) prefill: valid lengths
+    image_embeds: Optional[torch.Tensor] = None  # (B, n_img, d) prefill
     window: int = 0                # sliding window for local_attn layers
     plain_kernels: bool = False    # plain versions instead of the kernels
 
@@ -116,14 +121,16 @@ def _causal_mask(q_pos, k_pos, k_len=None, window: int = 0):
 
 def _sdpa(q, k, v, mask, scale, cap: float = 0.0):
     """Grouped attention (the reference's merged=False form).
-    q: (B,S,Hq,Dh) k,v: (B,L,Hkv,Dh) mask: (B,1,1,S,L) bool."""
+    q: (B,S,Hq,Dh) k: (B,L,Hkv,Dh) v: (B,L,Hkv,Dv) mask: (B,1,1,S,L) bool,
+    or None where every key is visible (cross-attention)."""
     B, S, Hq, Dh = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, Dh)
     scores = torch.einsum("bskgd,blkd->bkgsl", qg.float(), k.float()) * scale
     scores = softcap(scores, cap)
-    scores = torch.where(mask.transpose(1, 2), scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    if mask is not None:
+        scores = torch.where(mask.transpose(1, 2), scores,
+                             torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsl,blkv->bskgv", probs.to(v.dtype), v)
     return out.reshape(B, S, Hq, out.shape[-1])
@@ -172,6 +179,8 @@ def _write_kv(cfg: ModelConfig, state, k, v, ctx: ApplyCtx, dtype):
 # ---------------------------------------------------------------------------
 
 def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    if cfg.kv_lora_rank:
+        return _apply_mla(cfg, p, x, state, ctx)
     B, S, _ = x.shape
     dh, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
@@ -204,6 +213,91 @@ def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek latent attention): naive expansion for train / prefill /
+# chunks, weight-absorbed f32 scoring against the latent cache for decode.
+# The reference routes it through no kernel (its _sdpa and einsums).
+# ---------------------------------------------------------------------------
+
+def _apply_mla(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    B, S, _ = x.shape
+    nq = cfg.num_heads
+    nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
+    q = (h @ p.wq).reshape(B, S, nq, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], ctx.positions, cfg.rope_theta)
+    ckr = h @ p.w_dkv                                    # (B, S, lora+rope)
+    c_kv = rmsnorm(ckr[..., :lora], p.kv_norm)
+    k_rope = apply_rope(ckr[..., None, lora:], ctx.positions,
+                        cfg.rope_theta)[:, :, 0]         # (B, S, rope)
+    scale = (nope + rope) ** -0.5
+
+    if ctx.mode == "train":
+        cc, kr, k_pos = c_kv, k_rope, ctx.positions
+    else:
+        _update_cache(state["c_kv"], c_kv, ctx.write_idx, ctx.positions)
+        _update_cache(state["k_rope"], k_rope, ctx.write_idx, ctx.positions)
+        cc, kr = state["c_kv"], state["k_rope"]
+        k_pos = torch.arange(cc.shape[1], device=x.device)[None]
+    mask = _causal_mask(ctx.positions, k_pos, ctx.lengths)  # (B,1,1,S,L)
+
+    w_uk = p.w_uk.reshape(lora, nq, nope)
+    w_uv = p.w_uv.reshape(lora, nq, vdim)
+    if ctx.mode == "decode":
+        # absorbed: score against the latent cache directly
+        ccf = cc.float()
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk.float())
+        scores = (torch.einsum("bshr,blr->bhsl", q_abs, ccf)
+                  + torch.einsum("bshr,blr->bhsl", q_rope.float(),
+                                 kr.float())) * scale
+        scores = torch.where(mask[:, 0], scores,
+                             torch.tensor(NEG_INF, device=x.device))
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhsl,blr->bshr", probs, ccf)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv.float()).to(x.dtype)
+    else:
+        k_nope = torch.einsum("blr,rhn->blhn", cc, w_uk.to(cc.dtype))
+        v = torch.einsum("blr,rhv->blhv", cc, w_uv.to(cc.dtype))
+        k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
+            -1, -1, nq, -1)], -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        out = _sdpa(q_full, k_full, v, mask, scale)
+    out = out.reshape(B, S, nq * vdim) @ p.wo
+    return out.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (VLM image layers)
+# ---------------------------------------------------------------------------
+
+def apply_cross_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    """Attention from the text to the image embeddings.  Prefill projects
+    ``ctx.image_embeds`` to k / v (k normed) and keeps them in the state;
+    decode reads them back.  The output is scaled by tanh(gate)."""
+    B, S, _ = x.shape
+    dh, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
+    q = rmsnorm((h @ p.wq).reshape(B, S, nq, dh), p.q_norm)
+    if ctx.mode == "decode":
+        k, v = state["xk"], state["xv"]
+    else:
+        if ctx.image_embeds is None:
+            raise ValueError(f"{cfg.name}: a cross-attention prefill needs "
+                             "image_embeds")
+        ie = ctx.image_embeds.to(x.dtype)
+        k = rmsnorm((ie @ p.wk).reshape(B, -1, nkv, dh), p.k_norm)
+        v = (ie @ p.wv).reshape(B, -1, nkv, dh)
+        if state is not None:
+            state["xk"].copy_(k)
+            state["xv"].copy_(v)
+    out = _sdpa(q, k, v, None, dh ** -0.5)
+    out = out.reshape(B, S, nq * dh) @ p.wo
+    out = torch.tanh(p.gate.float()).to(x.dtype) * out
+    return out.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
 # Dense gated FFN
 # ---------------------------------------------------------------------------
 
@@ -215,6 +309,120 @@ def apply_dense_ffn(cfg: ModelConfig, p, x):
     if cfg.post_norms:
         out = rmsnorm(out, p.ln2_post, cfg.norm_plus_one)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: the reference's dense path (every expert computed on
+# every token, combined by the routing gates), which is what it runs on one
+# device; its expert-parallel path is the sharded one (ROADMAP A11).
+# ---------------------------------------------------------------------------
+
+def _router(cfg: ModelConfig, p, h):
+    """Softmax router, top-k renormalised, and the Switch load-balance aux
+    loss coef * E * sum(mean prob x share of routed (token, k) pairs)."""
+    m = cfg.moe
+    logits = h.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)                # (..., E)
+    top_p, top_i = torch.topk(probs, m.top_k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    flat = probs.reshape(-1, m.num_experts)
+    me = flat.mean(0)
+    ce = torch.zeros(m.num_experts, dtype=torch.float32, device=h.device)
+    ce = ce.index_add_(0, top_i.reshape(-1), torch.ones(
+        top_i.numel(), dtype=torch.float32, device=h.device))
+    ce = ce / max(flat.shape[0] * m.top_k, 1)
+    aux = m.router_aux_coef * m.num_experts * (me * ce).sum()
+    return top_p, top_i, aux
+
+
+def _moe_dense_path(cfg: ModelConfig, p, h, top_p, top_i):
+    """Every expert on every token.  ``torch.matmul`` of the (T, d) tokens
+    with the (E, d, f) experts broadcasts the tokens over E and reads the
+    expert weights in place (an einsum may permute a copy of them)."""
+    m = cfg.moe
+    B, S, d = h.shape
+    x = h.reshape(B * S, d)
+    gates = torch.zeros((B * S, m.num_experts), dtype=h.dtype,
+                        device=h.device)
+    gates.scatter_(1, top_i.reshape(B * S, -1),
+                   top_p.reshape(B * S, -1).to(h.dtype))
+    g = _act(torch.matmul(x, p.we_gate), cfg.act)       # (E, T, f)
+    u = torch.matmul(x, p.we_up)
+    ye = torch.matmul(g * u, p.we_down)                  # (E, T, d)
+    y = torch.einsum("etd,te->td", ye, gates)
+    return y.reshape(B, S, d)
+
+
+def apply_moe_ffn(cfg: ModelConfig, p, x):
+    """Routed experts plus the shared ones.  Returns (out, aux)."""
+    h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
+    top_p, top_i, aux = _router(cfg, p, h)
+    y = _moe_dense_path(cfg, p, h, top_p, top_i)
+    if cfg.moe.num_shared:
+        y = y + (_act(h @ p.ws_gate, cfg.act) * (h @ p.ws_up)) @ p.ws_down
+    if cfg.post_norms:
+        y = rmsnorm(y, p.ln2_post, cfg.norm_plus_one)
+    return y.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM): causal depthwise conv + sequential scan.  The
+# reference has no kernel for it either.
+# ---------------------------------------------------------------------------
+
+def _mamba_ssm_params(cfg: ModelConfig, p, xc):
+    """xc: (B, S, di) post-conv activations -> dt, B, C (f32)."""
+    mc = cfg.mamba
+    dtr = mc.dt_rank or -(-cfg.d_model // 16)
+    x_dbl = xc @ p.x_proj
+    dt = F.softplus(x_dbl[..., :dtr] @ p.dt_w + p.dt_b.float())
+    Bm = x_dbl[..., dtr:dtr + mc.d_state].float()
+    Cm = x_dbl[..., dtr + mc.d_state:].float()
+    return dt.float(), Bm, Cm
+
+
+def apply_mamba(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    """With ``ctx.lengths`` (a padded prompt or chunk) dt and x are zeroed
+    past each row's length, so the state stops there, and the conv state is
+    taken from the last d_conv - 1 *valid* inputs, in chunk-local
+    coordinates (absolute length minus chunk start)."""
+    B, S, d = x.shape
+    mc = cfg.mamba
+    di, K = mc.expand * d, mc.d_conv
+    h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
+    xz = h @ p.in_proj
+    xi, z = xz[..., :di], xz[..., di:]
+    if state is None:
+        conv0 = torch.zeros((B, K - 1, di), dtype=x.dtype, device=x.device)
+        hs = torch.zeros((B, di, mc.d_state), dtype=torch.float32,
+                         device=x.device)
+    else:
+        conv0, hs = state["conv"].to(x.dtype), state["ssm"].float()
+    xp = torch.cat([conv0, xi], dim=1)                   # (B, K-1+S, di)
+    xc = sum(xp[:, i:i + S] * p.conv_w[i] for i in range(K)) + p.conv_b
+    conv1 = xp[:, S:]
+    xc = F.silu(xc)
+    dt, Bm, Cm = _mamba_ssm_params(cfg, p, xc)
+    A = -torch.exp(p.A_log.float())                      # (di, ds)
+    xcf = xc.float()
+    if ctx.lengths is not None:
+        m = (ctx.positions < ctx.lengths[:, None]).float()[:, :, None]
+        dt, xcf = dt * m, xcf * m
+        loc = (ctx.lengths - ctx.positions[:, 0]).clamp(0, S).long()
+        rows = loc[:, None] + torch.arange(K - 1, device=x.device)[None]
+        conv1 = xp[torch.arange(B, device=x.device)[:, None], rows]
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t, :, None]                         # (B, di, 1)
+        hs = (torch.exp(dt_t * A[None]) * hs
+              + dt_t * Bm[:, t, None, :] * xcf[:, t, :, None])
+        ys.append(torch.einsum("bds,bs->bd", hs, Cm[:, t]))
+    y = torch.stack(ys, dim=1) + xcf * p.D.float()
+    out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
+    if state is not None:
+        state["ssm"].copy_(hs)
+        state["conv"].copy_(conv1)
+    return out.to(x.dtype), state
 
 
 # ---------------------------------------------------------------------------

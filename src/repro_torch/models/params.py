@@ -1,18 +1,24 @@
 """Parameters and decode state of the port's decoder layers.
 
 The leaf names, shapes, dtypes and init tags are those of the reference
-package's ``models/params.py`` (``_attn_leaves``, ``_dense_ffn_leaves``,
-``_rwkv_tm_leaves``, ``_rwkv_cm_leaves``, ``embed``, ``final_norm``,
-``lm_head``), so a parameter tree made there carries over one to one
-(``from_jax_params``).  Where the reference stacks the repeated block's
-leaves under a leading ``num_blocks`` dim for ``lax.scan``, the port keeps
-one ``DecoderLayer`` module per layer and loops over them.
+package's ``models/params.py`` (``_attn_leaves`` with its MLA and
+cross-attention variants, ``_dense_ffn_leaves``, ``_moe_ffn_leaves``,
+``_mamba_leaves``, ``_rwkv_tm_leaves``, ``_rwkv_cm_leaves``, ``embed``,
+``final_norm``, ``lm_head``), so a parameter tree made there carries over
+one to one (``from_jax_params``).  Where the reference stacks the repeated
+block's leaves under a leading ``num_blocks`` dim for ``lax.scan`` and
+keeps the ``first_k_dense`` layers apart under ``prefix``, the port keeps
+one ``DecoderLayer`` module per layer, prefix first, and loops over them.
 
 The state is one dict per layer, updated in place by the forward pass:
 ``{"k", "v"}`` (B, max_len, Hkv, D) caches for an attention layer (with
 ``kv_cache_dtype="int8"``, int8 values and f32 ``{"k_scale", "v_scale"}``
-(B, max_len, Hkv) per-(token, head) scales), and ``{"wkv"}`` (B, H, K, K)
-f32 plus ``{"shift_t", "shift_c"}`` (B, d) for an RWKV-6 layer.
+(B, max_len, Hkv) per-(token, head) scales); under MLA the latent
+``{"c_kv"}`` (B, max_len, kv_lora_rank) and ``{"k_rope"}`` (B, max_len,
+qk_rope_dim); ``{"xk", "xv"}`` (B, num_vision_tokens, Hkv, D) for a
+cross-attention layer; ``{"ssm"}`` (B, d_inner, d_state) f32 and
+``{"conv"}`` (B, d_conv - 1, d_inner) for Mamba; ``{"wkv"}`` (B, H, K, K)
+f32 plus ``{"shift_t", "shift_c"}`` (B, d) for RWKV-6.
 """
 from __future__ import annotations
 
@@ -33,22 +39,39 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclass(frozen=True)
 class Leaf:
     shape: tuple[int, ...]
-    init: str = "fanin"          # fanin | zeros | ones | embed | const:<v> | decay
+    init: str = "fanin"  # fanin|zeros|ones|embed|const:<v>|alog|decay
     dtype: Optional[str] = None  # None -> cfg.param_dtype
 
 
-def _attn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
+def _attn_leaves(cfg: ModelConfig, cross: bool = False) -> dict[str, Leaf]:
+    """GQA attention; with ``kv_lora_rank`` the MLA projections (latent
+    down-projection ``w_dkv``, its norm, the up-projections ``w_uk`` /
+    ``w_uv``); a cross-attention layer adds a scalar ``gate`` (zero at
+    init, so the layer starts silent) and q / k norms."""
     d, dh = cfg.d_model, cfg.head_dim_
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    t = {"ln1": Leaf((d,), "ones"),
-         "wq": Leaf((d, nq * dh)),
-         "wk": Leaf((d, nkv * dh)),
-         "wv": Leaf((d, nkv * dh)),
-         "wo": Leaf((nq * dh, d))}
-    if cfg.qkv_bias:
-        t["bq"] = Leaf((nq * dh,), "zeros")
-        t["bk"] = Leaf((nkv * dh,), "zeros")
-        t["bv"] = Leaf((nkv * dh,), "zeros")
+    t = {"ln1": Leaf((d,), "ones")}
+    if cfg.kv_lora_rank and not cross:
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        t["wq"] = Leaf((d, nq * qk))
+        t["w_dkv"] = Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_dim))
+        t["kv_norm"] = Leaf((cfg.kv_lora_rank,), "ones")
+        t["w_uk"] = Leaf((cfg.kv_lora_rank, nq * cfg.qk_nope_dim))
+        t["w_uv"] = Leaf((cfg.kv_lora_rank, nq * cfg.v_head_dim))
+        t["wo"] = Leaf((nq * cfg.v_head_dim, d))
+    else:
+        t["wq"] = Leaf((d, nq * dh))
+        t["wk"] = Leaf((d, nkv * dh))
+        t["wv"] = Leaf((d, nkv * dh))
+        t["wo"] = Leaf((nq * dh, d))
+        if cfg.qkv_bias:
+            t["bq"] = Leaf((nq * dh,), "zeros")
+            t["bk"] = Leaf((nkv * dh,), "zeros")
+            t["bv"] = Leaf((nkv * dh,), "zeros")
+    if cross:
+        t["gate"] = Leaf((), "zeros")
+        t["q_norm"] = Leaf((dh,), "ones")
+        t["k_norm"] = Leaf((dh,), "ones")
     if cfg.post_norms:
         t["ln1_post"] = Leaf((d,), "ones")
     return t
@@ -63,6 +86,44 @@ def _dense_ffn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     if cfg.post_norms:
         t["ln2_post"] = Leaf((d,), "ones")
     return t
+
+
+def _moe_ffn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
+    """Router, E stacked experts (E, d, f) / (E, f, d), and the shared
+    experts as one dense FFN of num_shared * f."""
+    d, m = cfg.d_model, cfg.moe
+    e, f = m.num_experts, m.d_ff_expert
+    t = {"ln2": Leaf((d,), "ones"),
+         "router": Leaf((d, e)),
+         "we_gate": Leaf((e, d, f)),
+         "we_up": Leaf((e, d, f)),
+         "we_down": Leaf((e, f, d))}
+    if m.num_shared:
+        fs = m.num_shared * f
+        t["ws_gate"] = Leaf((d, fs))
+        t["ws_up"] = Leaf((d, fs))
+        t["ws_down"] = Leaf((fs, d))
+    if cfg.post_norms:
+        t["ln2_post"] = Leaf((d,), "ones")
+    return t
+
+
+def _mamba_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
+    """Mamba mixer: ``dt_b``, ``A_log`` (``alog`` tag: log 1 .. d_state)
+    and ``D`` stay f32 in a bf16 model."""
+    d, mc = cfg.d_model, cfg.mamba
+    di = mc.expand * d
+    dtr = mc.dt_rank or -(-d // 16)
+    return {"ln1": Leaf((d,), "ones"),
+            "in_proj": Leaf((d, 2 * di)),
+            "conv_w": Leaf((mc.d_conv, di)),
+            "conv_b": Leaf((di,), "zeros"),
+            "x_proj": Leaf((di, dtr + 2 * mc.d_state)),
+            "dt_w": Leaf((dtr, di)),
+            "dt_b": Leaf((di,), "const:-4.6", "float32"),
+            "A_log": Leaf((di, mc.d_state), "alog", "float32"),
+            "D": Leaf((di,), "ones", "float32"),
+            "out_proj": Leaf((di, d))}
 
 
 _RWKV_LORA = 32
@@ -101,22 +162,10 @@ def _rwkv_cm_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
 
 
 _MIXERS = {"attn": _attn_leaves, "local_attn": _attn_leaves,
-           "rwkv": _rwkv_tm_leaves}
-_FFNS = {"dense": _dense_ffn_leaves, "rwkv_cm": _rwkv_cm_leaves}
-
-
-def check_supported(cfg: ModelConfig):
-    """The port has attention / RWKV-6 mixers and dense / RWKV channel-mix
-    FFNs; anything else is refused by name."""
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is ported in a later slice "
-            "(ROADMAP A8)")
-    for spec in cfg.layer_specs:
-        if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer}/{spec.ffn} layers are ported in "
-                "a later slice (ROADMAP A8)")
+           "cross_attn": lambda cfg: _attn_leaves(cfg, cross=True),
+           "mamba": _mamba_leaves, "rwkv": _rwkv_tm_leaves}
+_FFNS = {"dense": _dense_ffn_leaves, "moe": _moe_ffn_leaves,
+         "rwkv_cm": _rwkv_cm_leaves}
 
 
 class _Leaves(nn.Module):
@@ -134,9 +183,11 @@ class _Leaves(nn.Module):
 
 class DecoderLayer(_Leaves):
     """One residual layer: the leaves of its spec's mixer (attention
-    ``ln1``, ``wq``... or RWKV time-mix ``mu_x``, ``w0``...) and FFN (dense
-    ``w_gate``... or channel-mix ``wk_cm``...), the reference's per-layer
-    leaves."""
+    ``ln1``, ``wq``..., MLA ``w_dkv``..., cross-attention ``gate``...,
+    Mamba ``in_proj``... or RWKV time-mix ``mu_x``...) and FFN (dense
+    ``w_gate``..., MoE ``router``, ``we_gate``... or channel-mix
+    ``wk_cm``...), the reference's per-layer leaves.  The ``first_k_dense``
+    prefix layers are ``LayerSpec()`` layers (MLA leaves under MLA)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
         super().__init__({**_MIXERS[spec.mixer](cfg), **_FFNS[spec.ffn](cfg)},
@@ -158,7 +209,6 @@ class Transformer(_Leaves):
     (``final_norm``) and LM head (``lm_head``)."""
 
     def __init__(self, cfg: ModelConfig, device):
-        check_supported(cfg)
         super().__init__(_top_leaves(cfg), DTYPES[cfg.param_dtype], device)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, device) for spec in cfg.layer_specs)
@@ -184,8 +234,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A model with seeded random weights, made on `device`: fan-in normal
     (std 1/sqrt(fan_in)), 0.02 normal for the embedding, ones, zeros,
-    constants and the RWKV decay ramp as tagged.  `generator` must live on
-    `device`."""
+    constants, Mamba's log(1 .. d_state) and the RWKV decay ramp as
+    tagged.  `generator` must live on `device`."""
     model = Transformer(cfg, device)
     for mod in _leaf_modules(model):
         for name, lf in mod.leaves.items():
@@ -196,6 +246,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 p.fill_(1.0)
             elif lf.init.startswith("const:"):
                 p.fill_(float(lf.init[6:]))
+            elif lf.init == "alog":
+                ds = lf.shape[-1]
+                p.copy_(torch.log(torch.arange(
+                    1, ds + 1, dtype=torch.float32, device=device)))
             elif lf.init == "decay":
                 d = lf.shape[-1]
                 ramp = torch.arange(d, dtype=torch.float32, device=device)
@@ -239,35 +293,52 @@ def from_jax_params(cfg: ModelConfig, tree, device="cuda") -> Transformer:
 def _layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                  max_len: int, device) -> dict[str, torch.Tensor]:
     dt = DTYPES[cfg.dtype]
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     if spec.mixer == "rwkv":
         K = cfg.rwkv_head_dim
-        return {"wkv": torch.zeros((batch, cfg.d_model // K, K, K),
-                                   dtype=torch.float32, device=device),
-                "shift_t": torch.zeros((batch, cfg.d_model), dtype=dt,
-                                       device=device),
-                "shift_c": torch.zeros((batch, cfg.d_model), dtype=dt,
-                                       device=device)}
-    dt = DTYPES[cfg.kv_cache_dtype or cfg.dtype]
+        return {"wkv": zeros(batch, cfg.d_model // K, K, K,
+                             dtype=torch.float32),
+                "shift_t": zeros(batch, cfg.d_model),
+                "shift_c": zeros(batch, cfg.d_model)}
+    if spec.mixer == "mamba":
+        mc = cfg.mamba
+        di = mc.expand * cfg.d_model
+        return {"ssm": zeros(batch, di, mc.d_state, dtype=torch.float32),
+                "conv": zeros(batch, mc.d_conv - 1, di)}
+    if spec.mixer == "cross_attn":
+        shape = (batch, cfg.num_vision_tokens, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        return {"xk": zeros(*shape), "xv": zeros(*shape)}
+    if cfg.kv_lora_rank:
+        return {"c_kv": zeros(batch, max_len, cfg.kv_lora_rank),
+                "k_rope": zeros(batch, max_len, cfg.qk_rope_dim)}
+    kv_dt = DTYPES[cfg.kv_cache_dtype or cfg.dtype]
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    st = {"k": torch.zeros(shape, dtype=dt, device=device),
-          "v": torch.zeros(shape, dtype=dt, device=device)}
-    if dt == torch.int8:
+    st = {"k": zeros(*shape, dtype=kv_dt), "v": zeros(*shape, dtype=kv_dt)}
+    if kv_dt == torch.int8:
         for name in ("k_scale", "v_scale"):
-            st[name] = torch.zeros(shape[:3], dtype=torch.float32,
-                                   device=device)
+            st[name] = zeros(*shape[:3], dtype=torch.float32)
     return st
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> list[dict[str, torch.Tensor]]:
-    """Zeroed per-layer state: (batch, max_len, Hkv, D) KV caches in
-    cfg.kv_cache_dtype or cfg.dtype for attention (int8 adds the f32
-    (batch, max_len, Hkv) k_scale / v_scale); for RWKV-6 the f32 (batch, H,
-    K, K) WKV state and the (batch, d) token-shift states in cfg.dtype (no
-    max_len)."""
-    check_supported(cfg)
+    """Zeroed per-layer state (module docstring): KV caches in
+    cfg.kv_cache_dtype or cfg.dtype, or MLA's latent caches in cfg.dtype,
+    (batch, max_len, ...); cross-attention's image keys / values and the
+    Mamba and RWKV-6 recurrent states, which have no max_len."""
     return [_layer_state(cfg, spec, batch, max_len, device)
             for spec in cfg.layer_specs]
+
+
+def abstract_state(cfg: ModelConfig, batch: int,
+                   max_len: int) -> list[dict[str, torch.Tensor]]:
+    """The state's shapes and dtypes on the ``meta`` device: no memory is
+    allocated (the reference's ShapeDtypeStruct tree)."""
+    return init_state(cfg, batch, max_len, "meta")
 
 
 def count_params(model: nn.Module) -> int:

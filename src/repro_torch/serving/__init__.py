@@ -5,5 +5,5 @@ from repro_torch.serving.disagg import (  # noqa: F401
     DecoderAdapter, GatewayStats, PDCluster, PrefillerInstance,
 )
 from repro_torch.serving.kvtransfer import (  # noqa: F401
-    KVPayload, TransferStats, extract, insert, payload_bytes,
+    KVPayload, TransferStats, extract, insert, payload_bytes, transfer,
 )

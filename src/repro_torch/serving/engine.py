@@ -72,6 +72,7 @@ class Request:
     max_new_tokens: int
     arrival_t: float = 0.0
     sampling: SamplingParams = SamplingParams()
+    image_embeds: Optional[np.ndarray] = None   # (num_vision_tokens, d)
     # filled by the engine:
     slot: int = -1
     first_token_t: float = -1.0
@@ -197,7 +198,9 @@ class Engine:
         toks = np.zeros((1, pad), np.int32)
         toks[0, :L] = req.prompt
         st1 = init_state(self.cfg, 1, self.max_len, self.device)
-        logits, st1 = prefill(self.cfg, self.params, st1, toks, [L])
+        ie = None if req.image_embeds is None else \
+            torch.as_tensor(req.image_embeds)[None]
+        logits, st1 = prefill(self.cfg, self.params, st1, toks, [L], ie)
         _write_slot(self.state, st1, slot)
         tok = req.pick(_host(logits[0]))
         self.last_tokens[slot] = tok

@@ -6,19 +6,23 @@ the same interface:
     payload = extract(cfg, state, length)      # prefiller side
     nbytes  = payload_bytes(payload)           # what would cross the wire
     state   = insert(cfg, pool_state, payload, slot)   # decoder side
+    state   = transfer(cfg, src, dst, length, src_slot, dst_slot, stats)
 
 ``extract`` copies the request's slot and trims each sequence leaf (a KV
-cache) to the request's length rounded up to 128 tokens (at least 8); a
-recurrent state (RWKV-6's ``wkv``, ``shift_t``, ``shift_c``) crosses whole,
-which is why an attention-free model's payload does not grow with the
-prompt (§III-C).  ``payload_bytes`` is the reference's for the same config
-and length; it is the measured source of the network-stage Token
-Velocity.  Instances share one process and one device, so the "wire" is a
+cache, MLA's latent ``c_kv`` / ``k_rope``) to the request's length rounded
+up to 128 tokens (at least 8); a recurrent state (RWKV-6's ``wkv``,
+``shift_t``, ``shift_c``; Mamba's ``ssm``, ``conv``) crosses whole, which
+is why an attention-free model's payload does not grow with the prompt
+(§III-C), and so do a cross-attention layer's image keys / values ``xk``
+/ ``xv``.  ``payload_bytes`` is the reference's for the same config and
+length; it is the measured source of the network-stage Token Velocity.
+Instances share one process and one device, so the "wire" is a
 device-to-device copy.
 """
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig
@@ -27,8 +31,8 @@ from repro_torch.configs.base import ModelConfig
 @dataclass
 class KVPayload:
     """One request's transferable state: per-layer state dicts of batch 1,
-    {"k", "v"} (1, n, Hkv, D) with n the rounded length, or an RWKV-6
-    layer's whole {"wkv", "shift_t", "shift_c"}."""
+    the sequence leaves cut to n, the rounded length (e.g. {"k", "v"}
+    (1, n, Hkv, D)), the other leaves whole."""
     tree: list
     length: int
 
@@ -90,3 +94,16 @@ class TransferStats:
         """tok/s the link could sustain at the observed bytes/token."""
         return link_bw / max(self.bytes_per_token(), 1e-9)
 
+
+
+def transfer(cfg: ModelConfig, src_state, dst_state, length: int,
+             src_slot: int, dst_slot: int,
+             stats: TransferStats | None = None):
+    """extract -> (wire) -> insert, with ledger accounting."""
+    t0 = time.perf_counter()
+    payload = extract(cfg, src_state, length, src_slot)
+    nbytes = payload_bytes(payload)
+    new_dst = insert(cfg, dst_state, payload, dst_slot)
+    if stats is not None:
+        stats.record(nbytes, length, time.perf_counter() - t0)
+    return new_dst

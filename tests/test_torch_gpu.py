@@ -815,3 +815,108 @@ def test_dense_family_engine_on_card_matches_greedy(cuda, arch, over, lens,
     for r, p in zip(reqs, prompts):
         want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6)
         assert r.output == want[0].tolist(), r.rid
+
+
+# ---------------------------------------------------------------------------
+# the rest of the layer zoo (MLA, MoE, Mamba, cross-attention) on the card
+# ---------------------------------------------------------------------------
+
+def _zoo_model(cuda, arch):
+    from repro_torch import models as tm
+    cfg = get_config(arch, smoke=True)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    if cfg.num_vision_tokens:           # tanh(0) would silence the images
+        for layer in model.layers:
+            if layer.spec.mixer == "cross_attn":
+                with torch.no_grad():
+                    layer.gate.fill_(1.0)
+    return cfg, model
+
+
+def _zoo_images(cuda, cfg, n):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    return torch.randn(n, cfg.num_vision_tokens, cfg.d_model, generator=g,
+                       device=cuda)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "kimi_k2_1t_a32b",
+                                  "jamba_v0_1_52b"])
+def test_zoo_engine_on_card_matches_greedy(cuda, arch):
+    """SMOKE models on the card: the convertible engine (chunks of 8, 2
+    slots, so a chunked request lands in a reused slot) gives the port's
+    own greedy tokens.  Kimi's and Jamba's attention layers go through
+    both attention kernels; DeepSeek's MLA through none, as in the
+    reference."""
+    from repro_torch import models as tm
+    from repro_torch.serving import Engine, Request
+    cfg, model = _zoo_model(cuda, arch)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(L,)).astype(np.int32)
+               for L in (7, 12, 5, 20)]
+    kops.reset_launches()
+    eng = Engine(cfg, model, num_slots=2, max_len=64, chunk_size=8)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_drained()
+    assert eng.mixed_steps > 0
+    attn = (kops.LAUNCHES["chunked_prefill_attention"],
+            kops.LAUNCHES["decode_attention"])
+    if cfg.kv_lora_rank:
+        assert attn == (0, 0), kops.LAUNCHES
+    else:
+        assert min(attn) > 0, kops.LAUNCHES
+    for r, p in zip(reqs, prompts):
+        want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6)
+        assert r.output == want[0].tolist(), r.rid
+
+
+def test_vision_engine_on_card_matches_greedy(cuda):
+    """llama-vision SMOKE on the card, gate 1: an Engine (chunk_size 0)
+    with an image per request gives the port's own greedy tokens, through
+    both attention kernels on the self-attention layer; another image
+    changes the tokens."""
+    from repro_torch import models as tm
+    from repro_torch.serving import Engine, Request
+    cfg, model = _zoo_model(cuda, "llama_3_2_vision_11b")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(L,)).astype(np.int32)
+               for L in (7, 12, 5, 20)]
+    ie = _zoo_images(cuda, cfg, len(prompts))
+    kops.reset_launches()
+    eng = Engine(cfg, model, num_slots=2, max_len=64)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6, image_embeds=ie[i])
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_drained()
+    assert kops.LAUNCHES["chunked_prefill_attention"] > 0, kops.LAUNCHES
+    assert kops.LAUNCHES["decode_attention"] > 0, kops.LAUNCHES
+    for r, p in zip(reqs, prompts):
+        want = tm.greedy_generate(cfg, model, p[None], [len(p)], 6,
+                                  ie[r.rid:r.rid + 1])
+        assert r.output == want[0].tolist(), r.rid
+    other = tm.greedy_generate(cfg, model, prompts[3][None], [20], 6, ie[:1])
+    assert other[0].tolist() != reqs[3].output
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "kimi_k2_1t_a32b",
+                                  "jamba_v0_1_52b", "llama_3_2_vision_11b"])
+def test_zoo_forward_train_on_card_matches_cpu(cuda, arch):
+    """forward_train's logits and MoE aux on the card (attention through
+    the prefill kernel, MLA / MoE / Mamba / cross-attention as torch ops)
+    against the same model on the CPU, f32 SMOKE weights: 2e-4."""
+    import copy
+
+    from repro_torch import models as tm
+    cfg, model = _zoo_model(cuda, arch)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 40))
+    ie = _zoo_images(cuda, cfg, 2) if cfg.num_vision_tokens else None
+    got, aux = tm.forward_train(cfg, model, toks, ie, [40, 33])
+    want, want_aux = tm.forward_train(
+        cfg, copy.deepcopy(model).cpu(), toks,
+        None if ie is None else ie.cpu(), [40, 33])
+    _close(got.cpu(), want, 2e-4)
+    _close(aux.cpu(), want_aux, 2e-4)

@@ -10,6 +10,7 @@ import pytest
 import torch  # noqa: F401
 
 from repro import core as jcore
+from repro.configs import ARCH_IDS
 from repro.configs import get_config as jget_config
 from repro_torch import core as tcore
 from repro_torch.configs import get_config
@@ -38,9 +39,7 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", ["llama31_8b", "qwen25_32b", "rwkv6_3b",
-                                  "gemma2_9b", "gemma_2b", "yi_9b",
-                                  "qwen2_0_5b", "musicgen_large"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference(arch, smoke):
     assert dataclasses.asdict(get_config(arch, smoke)) \
