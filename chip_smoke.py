@@ -6,7 +6,10 @@
 Phases (any failure exits non-zero; nothing is skipped):
   1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
   2. parity  — each kernel against its plain PyTorch version on the card:
-               attention at Llama-3.1-8B heads at the main-path shapes in
+               attention at Llama-3.1-8B heads at the main-path shapes
+               and at phase 11's (a chunk of the planned size into a
+               4096-row cache, whole and partial, the last chunk at its
+               offset, decode at B=4 L=4096) in
                bf16 (3e-2, and 2e-5 + 2 bf16 steps of the plain value) and
                f32 (2e-5), the split-KV decode kernel also against its plain
                split-and-merge version and bit-equal to itself, the prefill
@@ -91,6 +94,23 @@ Phases (any failure exits non-zero; nothing is skipped):
                attention kernels launch on the self-attention layers; the
                logits change with the image; the two profiles; the logits
                as phase 8's, with the model in f32 at full depth
+ 11. control — the paper's control plane and both cluster simulators,
+               copied into the port (numpy on the host; no JAX here):
+               seven of the eight golden fixtures in tests/golden
+               replayed as the reference's tests replay them, counts
+               exact and the rest within the reference's 5%, then
+               compare_policies at the H100 profile; the Token Velocity
+               profile (an analytic H100 roofline) beside what phases 3,
+               8 and 9 measured (printed only), each of their transfers
+               held to hardware.kv_bytes_per_token per rounded token; a
+               full-width Llama-3.1-8B convertible Engine (max_len 4096)
+               at the chunk plan_convertible picks for one H100 (2816
+               tokens): every
+               request completes, a mixed step runs a chunk of exactly
+               that size, and one profiled mixed step is set beside Eq.
+               5's prediction and the 100 ms TPOT SLO; its attention
+               launches are printed on its own line, not in the kernels
+               line
 
 Phases run in this order, one after another; each frees its model before
 the next, and each one's wall time is printed as "[phase] name: s".
@@ -128,11 +148,11 @@ PAGED_CASES = [                          # tests/test_paged_and_sampling.py
     (2, 3, 8, 32, 8, 8, 64),
 ]
 DECODE_CUR = [0, 700, 1500, 2047]        # the decode rows' cache lengths
-PAYLOAD_LLAMA = 131_072                  # 32 x 2 x 8 x 128 x 2 B per token
 PAYLOAD_RWKV = 21_299_200                # 32 x (40*64*64*4 + 2*2560*2) B
-PAYLOAD_GEMMA = 344_064                  # 42 x 2 x 8 x 256 x 2 B per token
-PAYLOAD_QWEN = 262_144                   # 64 x 2 x 8 x 128 x 2 B per token
-PAYLOAD_DEEPSEEK = 31_104                # 27 x (512 + 64) x 2 B per token
+CONVERTIBLE_MAX_LEN = 4096               # phase 11's Engine
+#: phase 11's decode rows: the chunked slot (0), three decoding requests,
+#: a burst request decoding after its chunks, the cache's last row
+CONVERTIBLE_CUR = [0, 1100, 3540, 4095]
 QWEN_F32_LAYERS = 12                     # Qwen's f32 logits check: 12 of 64
 GEMMA_DECODE_CUR = [0, 700, 1500, 4600]  # Gemma-2-9B's decode rows
 GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0     # its local layers' window, softcap
@@ -397,16 +417,26 @@ def phase_parity():
     # output there is ~0.04, as large as the 3e-2 bf16 tolerance, so bf16
     # is also held to 2e-5 + 2 bf16 steps of the plain version's value.
     bf, f32 = torch.bfloat16, torch.float32
-    cases = {"whole prompt Sq=512 Skv=2048": (512, 0, 512),
-             "convertible chunk Sq=256 off=768 len=1024": (256, 768, 1024),
-             "burst prompt Sq=2048 Skv=2048 len=1500": (2048, 0, 1500)}
+    cases = {"whole prompt Sq=512 Skv=2048": (512, 0, 512, 2048),
+             "convertible chunk Sq=256 off=768 len=1024": (256, 768, 1024,
+                                                           2048),
+             "burst prompt Sq=2048 Skv=2048 len=1500": (2048, 0, 1500, 2048)}
+    # phase 11's shapes: a chunk of the planned size C into a cache of
+    # CONVERTIBLE_MAX_LEN rows, whole and partial, and a prompt's last
+    # chunk, cut at the cache's end, at offset C
+    C, M = convertible_chunk(), CONVERTIBLE_MAX_LEN
+    cases.update({
+        f"planned chunk Sq={C} Skv={M} len={C}": (C, 0, C, M),
+        f"planned chunk Sq={C} Skv={M} len={C - 700}": (C, 0, C - 700, M),
+        f"last chunk Sq={M - C} off={C} Skv={M} len=3540": (M - C, C, 3540,
+                                                            M)})
 
     main_inputs = {}
     for dt in (bf, f32):
-        for label, (Sq, off, n) in cases.items():
+        for label, (Sq, off, n, Skv) in cases.items():
             q = _rand(g, (1, Sq, 32, 128), dt)
-            k = _rand(g, (1, 2048, 8, 128), dt)
-            v = _rand(g, (1, 2048, 8, 128), dt)
+            k = _rand(g, (1, Skv, 8, 128), dt)
+            v = _rand(g, (1, Skv, 8, 128), dt)
             o = torch.tensor([off], device=dev)
             ln = torch.tensor([n], device=dev)
             ok &= judge_attention(
@@ -414,22 +444,25 @@ def phase_parity():
                 kops.prefill_attention(q, k, v, o, ln),
                 ref.chunked_prefill_attention_ref(q, k, v, o, ln))
             main_inputs[label] = (Sq, off, n)
-        q = _rand(g, (4, 32, 128), dt)
-        k, v = _rand(g, (4, 2048, 8, 128), dt), _rand(g, (4, 2048, 8, 128), dt)
-        cur = torch.tensor([0, 700, 1500, 2047], device=dev)
-        out = kops.decode_attention_op(q, k, v, cur)
-        ok &= judge_attention(
-            errs, "decode_attention", "B=4 L=2048 cur=[0,700,1500,2047]", dt,
-            out, ref.decode_attention_ref(q, k, v, cur))
-        split, nsplit = kops.decode_split(2048, 4, 8)
-        ok &= judge_attention(
-            errs, "decode_attention", f"the same vs the plain split-and-merge "
-            f"version ({nsplit} splits of {split})", dt, out,
-            ref.decode_attention_split_ref(q, k, v, cur, split))
-        same = bool(torch.equal(out, kops.decode_attention_op(q, k, v, cur)))
-        ok &= same
-        log(f"[parity] decode_attention {'bf16' if dt == bf else 'f32'}: two "
-            f"calls bit-equal: {same}")
+        for L, curs in ((2048, DECODE_CUR), (M, CONVERTIBLE_CUR)):
+            q = _rand(g, (4, 32, 128), dt)
+            k, v = _rand(g, (4, L, 8, 128), dt), _rand(g, (4, L, 8, 128), dt)
+            cur = torch.tensor(curs, device=dev)
+            out = kops.decode_attention_op(q, k, v, cur)
+            ok &= judge_attention(
+                errs, "decode_attention", f"B=4 L={L} cur={curs}", dt,
+                out, ref.decode_attention_ref(q, k, v, cur))
+            split, nsplit = kops.decode_split(L, 4, 8)
+            ok &= judge_attention(
+                errs, "decode_attention", f"the same vs the plain "
+                f"split-and-merge version ({nsplit} splits of {split})", dt,
+                out, ref.decode_attention_split_ref(q, k, v, cur, split))
+            same = bool(torch.equal(out,
+                                    kops.decode_attention_op(q, k, v, cur)))
+            ok &= same
+            log(f"[parity] decode_attention {'bf16' if dt == bf else 'f32'} "
+                f"L={L}: two calls bit-equal: {same}")
+        del q, k, v
 
     # the reference's kernel-test sweep: bf16 runs the tensor-core path
     # (3e-2 and the bf16-steps bound), f32 the CUDA-core path (2e-5)
@@ -1222,7 +1255,8 @@ def drive_pd(cfg, model, tag, max_len=2048, long_pd=(), long_direct=(),
         launches=launches, reqs=reqs, direct=direct, transfers=transfers,
         max_len=max_len,
         done=sum(len(r.output) == new for r in reqs + direct),
-        n=len(reqs) + len(direct), mixed=int(mixed), dec_steps=int(dec))
+        n=len(reqs) + len(direct), mixed=int(mixed), dec_steps=int(dec),
+        prefill_tok_s=pre_tok / max(pre_s, 1e-9))
     dec_ms = 1e3 * dec_s / max(dec, 1)
     mix_ms = 1e3 * mixed_s / max(mixed, 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1282,19 +1316,18 @@ def phase_serve():
     run = drive_pd(cfg, model, "serve")
     launches = {n: run["launches"][n]
                 for n in ("chunked_prefill_attention", "decode_attention")}
-    bytes_ok = payloads_ok(run, "serve", PAYLOAD_LLAMA)
+    bytes_ok = payloads_ok(run, "serve", cfg)
     check(run["done"] == run["n"], "not every request completed")
     check(run["mixed"] > 0, "no mixed (convertible) step ran")
     check(all(n > 0 for n in launches.values()), f"launches {launches}")
     check(bytes_ok, "KV payload sizes")
-    profile_decode(cfg, model)
-    profile_prefill(cfg, model)
+    figures = velocity_figures(cfg, model, run, bytes_ok)
     p, L = run["reqs"][3].prompt, run["max_len"]
     share, _, finite = compare_logits(
         last_logits(cfg, model, p, L), last_logits(cfg, model, p, L, True),
         "serve", f"kernels vs plain attention (L={len(p)})")
     check(finite and share <= 0.05, "kernel and plain logits disagree")
-    return launches
+    return launches, figures
 
 
 def phase_paged():
@@ -1374,8 +1407,7 @@ def phase_rwkv():
     lens = sorted(L for _, L in run["transfers"])
     log(f"[rwkv] state transfers {len(sent)} for prompts of {lens[0]}.."
         f"{lens[-1]} tokens, {sum(sent)} bytes; each {PAYLOAD_RWKV} B: "
-        f"{all(b == PAYLOAD_RWKV for b in sent)} (a Llama-3.1-8B prompt of "
-        f"1024 tokens ships {PAYLOAD_LLAMA * 1024} B)")
+        f"{all(b == PAYLOAD_RWKV for b in sent)}")
     check(run["done"] == run["n"], "rwkv: not every request completed")
     check(run["mixed"] > 0, "rwkv: no mixed (convertible) step ran")
     check(run["launches"]["wkv6"] > 0, f"rwkv launches {run['launches']}")
@@ -1410,7 +1442,7 @@ def phase_gemma():
                    max_instances=3)
     launches = {n: run["launches"][n]
                 for n in ("chunked_prefill_attention", "decode_attention")}
-    bytes_ok = payloads_ok(run, "gemma", PAYLOAD_GEMMA)
+    bytes_ok = payloads_ok(run, "gemma", cfg)
     long_ok = [len(r.output) == 32 for r in (run["reqs"][-1],
                                              run["direct"][-1])]
     log(f"[gemma] the prompts past the window ({len(run['reqs'][-1].prompt)} "
@@ -1514,12 +1546,25 @@ def _device_by_kind(prof):
     return kinds, n, n_attn
 
 
+def _profiled(fn):
+    """Run `fn` once under torch.profiler: the host's wall microseconds,
+    then _device_by_kind of what ran."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return (wall_us, *_device_by_kind(prof))
+
+
 def profile_decode(cfg, model, ctx=1024, steps=8):
     """Where one decode step's time goes: 4 slots at ~`ctx` tokens of
     context, `steps` decode steps under torch.profiler; kernel time by kind
-    and the device's idle share of the host's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and the device's idle share of the host's wall time.  Returns the
+    step's wall and device ms, or None if the profiler saw no device."""
     from repro_torch.serving import Engine, Request
     rng = np.random.RandomState(1)
     eng = Engine(cfg, model, num_slots=4, max_len=2048)
@@ -1529,33 +1574,27 @@ def profile_decode(cfg, model, ctx=1024, steps=8):
             max_new_tokens=steps + 4, image_embeds=image(cfg, 100 + i)))
     eng.step()
     eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kinds, n, n_attn = _device_by_kind(prof)
+    wall_us, kinds, n, n_attn = _profiled(
+        lambda: [eng.step() for _ in range(steps)])
     busy = sum(kinds.values())
     if n == 0:
         log("[profile] decode step breakdown: not measured (the profiler "
             "recorded no device events)")
-        return
+        return None
     per = {k: round(v / steps / 1e3, 3) for k, v in kinds.items()}
     log(f"[profile] {cfg.name} decode step at B=4, ctx~{ctx}: wall "
         f"{wall_us / steps / 1e3:.2f} ms/step; device ms/step by kind {per};"
         f" {n / steps:.0f} kernels/step ({n_attn / steps:.0f} attention); "
         f"device idle share {1 - busy / wall_us:.3f}")
+    return dict(wall_ms=wall_us / steps / 1e3, device_ms=busy / steps / 1e3)
 
 
 def profile_prefill(cfg, model, length=1024):
     """Where one prompt's prefill time goes (the prefiller's work, TTFT):
     a `length`-token prompt through models.prefill under torch.profiler;
-    kernel time by kind and the device's idle share of the host's wall."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel time by kind and the device's idle share of the host's wall.
+    Returns its wall and device ms, or None if the profiler saw no
+    device."""
     from repro_torch.models import init_state, prefill
     toks = np.random.RandomState(2).randint(
         0, cfg.vocab_size, size=(1, length)).astype(np.int32)
@@ -1565,21 +1604,17 @@ def profile_prefill(cfg, model, length=1024):
             img)
     torch.cuda.synchronize()
     state = init_state(cfg, 1, 2048, "cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prefill(cfg, model, state, toks, [length], img)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kinds, n, _ = _device_by_kind(prof)
+    wall_us, kinds, n, _ = _profiled(
+        lambda: prefill(cfg, model, state, toks, [length], img))
     if n == 0:
         log("[profile] prefill breakdown: not measured (the profiler "
             "recorded no device events)")
-        return
+        return None
     per = {k: round(v / 1e3, 3) for k, v in kinds.items()}
     log(f"[profile] {cfg.name} prefill of one {length}-token prompt: wall "
         f"{wall_us / 1e3:.2f} ms; device ms by kind {per}; {n} kernels; "
         f"device idle share {1 - sum(kinds.values()) / wall_us:.3f}")
+    return dict(wall_ms=wall_us / 1e3, device_ms=sum(kinds.values()) / 1e3)
 
 
 def _same_as_greedy(cfg, model, reqs, new=6):
@@ -1702,15 +1737,35 @@ def open_cross_gates(model):
                 layer.gate.fill_(1.0)
 
 
-def payloads_ok(run, tag, per_token):
-    """Every transfer of the run is `per_token` B per 128-rounded token."""
-    want = [per_token * min(max(-(-L // 128) * 128, 8), run["max_len"])
+def velocity_figures(cfg, model, run, bytes_ok):
+    """What phase 11 sets beside the control plane's Token Velocity
+    profile: the served run's prefiller rate, its transfers and whether
+    each was kv_bytes_per_token per rounded token, and the two profiles
+    (decode step at B=4, ctx 1024; one 1024-token prefill)."""
+    return dict(cfg=cfg, prefill_tok_s=run["prefill_tok_s"],
+                transfers=run["transfers"], bytes_ok=bytes_ok,
+                decode=profile_decode(cfg, model),
+                prefill=profile_prefill(cfg, model))
+
+
+def rounded(L, max_len):
+    """The tokens a transfer of an L-token prompt ships: L rounded up to
+    128, at least 8, at most max_len."""
+    return min(max(-(-L // 128) * 128, 8), max_len)
+
+
+def payloads_ok(run, tag, cfg):
+    """Every transfer of the run is hardware.kv_bytes_per_token(cfg) B per
+    128-rounded token."""
+    from repro_torch.core import hardware
+    per_token = int(hardware.kv_bytes_per_token(cfg))
+    want = [per_token * rounded(L, run["max_len"])
             for _, L in run["transfers"]]
     sent = [b for b, _ in run["transfers"]]
     ok = len(sent) > 0 and sent == want
     log(f"[{tag}] transfers {len(sent)}, {sum(sent)} bytes, for prompts of "
-        f"{sorted(L for _, L in run['transfers'])} tokens; each {per_token} "
-        f"B x rounded length: {ok}")
+        f"{sorted(L for _, L in run['transfers'])} tokens; each "
+        f"kv_bytes_per_token {per_token} B x rounded length: {ok}")
     return ok
 
 
@@ -1732,20 +1787,19 @@ def phase_qwen():
     run = drive_pd(cfg, model, "qwen", max_instances=2)
     launches = {n: run["launches"][n]
                 for n in ("chunked_prefill_attention", "decode_attention")}
-    bytes_ok = payloads_ok(run, "qwen", PAYLOAD_QWEN)
+    bytes_ok = payloads_ok(run, "qwen", cfg)
     check(run["done"] == run["n"], "qwen: not every request completed")
     check(run["mixed"] > 0, "qwen: no mixed (convertible) step ran")
     check(all(n > 0 for n in launches.values()), f"qwen launches {launches}")
     check(bytes_ok, "qwen payload sizes")
-    profile_decode(cfg, model)
-    profile_prefill(cfg, model)
+    figures = velocity_figures(cfg, model, run, bytes_ok)
     check_logits(cfg, model, run["reqs"][3].prompt, run["max_len"], "qwen",
                  "attention kernels", SDPA_F32_P,
                  "with P and P.V in f32 vs P in bf16", bf16="rule",
                  f32_layers=QWEN_F32_LAYERS)
     log(f"[qwen] peak device memory over the phase "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, figures
 
 
 def phase_deepseek():
@@ -1760,14 +1814,13 @@ def phase_deepseek():
     run = drive_pd(cfg, model, "deepseek")
     attn = {n: run["launches"][n]
             for n in ("chunked_prefill_attention", "decode_attention")}
-    bytes_ok = payloads_ok(run, "deepseek", PAYLOAD_DEEPSEEK)
+    bytes_ok = payloads_ok(run, "deepseek", cfg)
     check(run["done"] == run["n"], "deepseek: not every request completed")
     check(run["mixed"] > 0, "deepseek: no mixed (convertible) step ran")
     check(all(n == 0 for n in attn.values()),
           f"deepseek: attention kernels launched under MLA: {attn}")
     check(bytes_ok, "deepseek payload sizes")
-    profile_decode(cfg, model)
-    profile_prefill(cfg, model)
+    figures = velocity_figures(cfg, model, run, bytes_ok)
     p, L = run["reqs"][3].prompt, run["max_len"]
     share, same, finite = compare_logits(
         last_logits(cfg, model, p, L), last_logits(cfg, model, p, L, True),
@@ -1775,7 +1828,7 @@ def phase_deepseek():
         "this path)")
     check(finite and same and share <= 0.05,
           "deepseek: kernel and plain logits disagree")
-    return attn
+    return figures
 
 
 def phase_vision():
@@ -1835,6 +1888,316 @@ def phase_vision():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the control plane and both simulators, beside the card
+# ---------------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "golden"
+#: the fixtures phase 11 replays.  pareto_coord.json does not hold its pool
+#: list (benchmarks/run.py's pareto_fleet_spec builds it), so only the CPU
+#: tests replay that one, from the spec's dict.
+GOLDEN_ON_CARD = ("tokenscale_azure_conv", "priority_preemption_burstgpt2",
+                  "hetero_fleet", "kvtiers_session", "gateway_locality",
+                  "deflect_burst", "chaos_recovery")
+GOLDEN_REL = {"pareto_coord": 1e-6}      # the reference's tests' tolerances;
+GOLDEN_REL_DEFAULT = 0.05                # counts (ints) are held exact
+#: the chaos bench's knobs that its fixture does not record
+#: (benchmarks/run.py run_chaos_variant)
+CHAOS_KNOBS = dict(preemption="evict-lowest", block_size=16,
+                   prefix_cache=True)
+PLAN_ARGS = dict(expected_decode_batch=4, avg_ctx=1024, burst_ratio=0.2,
+                 max_decoders=2)         # phase 11's convertible plan
+
+
+def convertible_plan(cfg):
+    """plan_convertible's plan for `cfg` on one H100 (TP 1), phase 11's."""
+    from repro_torch.core import CHIPS, InstanceSpec, plan_convertible
+    return plan_convertible(cfg, InstanceSpec(CHIPS["h100"], 1), **PLAN_ARGS)
+
+
+def convertible_chunk():
+    """The chunk size of phase 11's plan for Llama-3.1-8B (2816 tokens)."""
+    from repro_torch.configs import get_config
+    return convertible_plan(get_config("llama31_8b")).chunk_size
+
+
+def _finite(x):
+    """`x` with each non-finite float as None, as the fixtures store it."""
+    if isinstance(x, dict):
+        return {k: _finite(v) for k, v in x.items()}
+    if isinstance(x, float) and not math.isfinite(x):
+        return None
+    return x
+
+
+def _golden_variant(name, g, runner, eng, v, mix, pareto_specs):
+    """One variant's row of a per-variant fixture, as its regenerator
+    writes it (scripts/regen_golden.py)."""
+    knob = g["variants"][v]
+    run = partial(runner.run_policy, "tokenscale", g["trace"], engine=eng)
+    if name == "kvtiers_session":
+        rep = run(preemption=knob[0], priority_mix=mix,
+                  session_prob=g["session_prob"], block_size=g["block_size"],
+                  prefix_cache=knob[1], **g["fleet"])
+        return {"n_requests": len(rep.requests),
+                "n_preemptions": len(rep.preemptions),
+                "prefill_tokens": sum(r.src.in_len - r.kv_hit_tokens
+                                      for r in rep.requests),
+                "kv": rep.kv_summary()}
+    if name == "gateway_locality":
+        rep = run(preemption="pause-requeue", session_prob=g["session_prob"],
+                  block_size=g["block_size"], prefix_cache=True,
+                  gateway=knob[0], kv_alloc=knob[1], **g["shared_prefix"],
+                  **g["fleet"])
+        return {"n_requests": len(rep.requests),
+                "ttft_p99": rep.percentile("ttft", 99),
+                "slo_attainment": rep.slo_attainment(),
+                "avg_gpus": rep.avg_gpus(), "kv": rep.kv_summary(),
+                "gw": rep.gw_summary()}
+    if name == "deflect_burst":
+        rep = run(prefill_chunking=knob, **g["fleet"])
+        return {**rep.summary(), "tpot_p99": rep.percentile("tpot", 99),
+                "n_deflected": rep.n_deflected}
+    if name == "chaos_recovery":
+        rep = run(priority_mix=mix, faults=dict(g["faults"], recovery=knob),
+                  **CHAOS_KNOBS, **g["fleet"])
+        return {**rep.summary(), "class0": rep.class_summary(0),
+                "faults": rep.fault_summary()}
+    if name == "pareto_coord":
+        rep = runner.run_spec(runner.ExperimentSpec.from_dict(
+            pareto_specs[(eng, v)]))
+        return {**rep.summary(), "cost": rep.cost_summary()}
+    raise KeyError(name)
+
+
+def golden_replay(name, g, runner, pareto_specs=None):
+    """Replay golden fixture `g` (tests/golden/`name`.json) through
+    `runner` (a package's sim.runner module) as the reference's tests
+    replay it.  Returns its rows in the fixture's schema, {engine: row} or
+    {engine: {variant: row}}, non-finite floats as None.  pareto_coord's
+    pool list is not in its fixture: `pareto_specs` maps (engine, variant)
+    to its ExperimentSpec's dict."""
+    mix = {int(k): v for k, v in g.get("priority_mix", {}).items()} or None
+    out = {}
+    for eng in g["engines"]:
+        if name == "tokenscale_azure_conv":
+            row = runner.run_policy(
+                g["policy"], g["trace"], duration=g["duration"],
+                rps=g["rps"], seed=g["seed"], engine=eng).summary()
+        elif name == "priority_preemption_burstgpt2":
+            rep = runner.run_policy(
+                g["policy"], g["trace"], model=g["model"], tp=g["tp"],
+                duration=g["duration"], rps=g["rps"], seed=g["seed"],
+                engine=eng, preemption=g["preemption"],
+                max_instances=g["max_instances"], priority_mix=mix)
+            row = {"n_requests": len(rep.requests),
+                   "n_preemptions": len(rep.preemptions),
+                   "classes": {str(c): rep.class_summary(c)
+                               for c in rep.priority_classes()}}
+        elif name == "hetero_fleet":
+            row = runner.run_spec(runner.ExperimentSpec.from_dict(
+                {**g["spec"], "engine": eng})).summary()
+        else:
+            row = {v: _golden_variant(name, g, runner, eng, v, mix,
+                                      pareto_specs) for v in g["variants"]}
+        out[eng] = _finite(row)
+    return out
+
+
+def golden_deviation(want, got, rel):
+    """Hold `got` to fixture rows `want`: floats within `rel` (relative to
+    the fixture's value), everything else (counts, key sets, None for a
+    non-finite value) exact.  Returns the largest relative deviation of
+    a float and the places that fail."""
+    worst, bad = 0.0, []
+
+    def walk(w, x, at):
+        nonlocal worst
+        if isinstance(w, dict):
+            if not isinstance(x, dict) or set(w) != set(x):
+                bad.append(f"{at}: keys")
+                return
+            for k in w:
+                walk(w[k], x[k], f"{at}/{k}")
+        elif isinstance(w, float) and isinstance(x, (int, float)):
+            d = abs(x - w) / max(abs(w), 1e-12)
+            worst = max(worst, d)
+            if d > rel:
+                bad.append(f"{at}: {x!r} vs {w!r}")
+        elif x != w:
+            bad.append(f"{at}: {x!r} vs {w!r}")
+    walk(want, got, "")
+    return worst, bad
+
+
+def control_goldens():
+    """Part 1 of phase 11: the seven self-contained fixtures through the
+    port's simulators, then the policies head to head at the H100
+    profile."""
+    from repro_torch.sim import runner
+    for name in GOLDEN_ON_CARD:
+        g = json.loads((GOLDEN / f"{name}.json").read_text())
+        t = time.perf_counter()
+        got = golden_replay(name, g, runner)
+        wall = time.perf_counter() - t
+        worst, bad = golden_deviation(
+            g["engines"], got, GOLDEN_REL.get(name, GOLDEN_REL_DEFAULT))
+        log(f"[control] golden {name}: largest relative deviation "
+            f"{worst:.3g}, {len(bad)} places past tolerance; sim wall "
+            f"{wall:.2f} s")
+        check(not bad, f"control: golden {name} differs at {bad[:4]}")
+    t = time.perf_counter()
+    reps = runner.compare_policies("mixed", chip="h100", duration=60.0,
+                                   rps=8.0)
+    wall = time.perf_counter() - t
+    log("[control] compare_policies(mixed, 60 s, 8 rps) at the h100 "
+        "profile: " + ", ".join(
+            f"{n} SLO {100 * r.slo_attainment():.1f}% avg GPUs "
+            f"{r.avg_gpus():.2f}" for n, r in reps.items())
+        + f"; sim wall {wall:.2f} s")
+
+
+def control_velocity(figures, card):
+    """Part 2 of phase 11: the control plane's Token Velocity profile (an
+    analytic roofline of one H100) beside what phases 3, 8 and 9 measured.
+    Printed only (those phases held every transfer to
+    hardware.kv_bytes_per_token per rounded token)."""
+    from repro_torch.core import CHIPS, InstanceSpec, hardware, profile
+    inst = InstanceSpec(CHIPS["h100"], 1)
+    log(f"[control] Token Velocity, analytic (H100 roofline, TP 1) vs "
+        f"measured on {card}:")
+    for arch, f in figures.items():
+        cfg = f["cfg"]
+        log(f"[control] {arch}: {len(f['transfers'])} transfers, each "
+            f"kv_bytes_per_token {hardware.kv_bytes_per_token(cfg):.0f} B "
+            f"x rounded length: {f['bytes_ok']}")
+        v_p = profile(cfg, inst).v_prefill
+        parts = [f"V_P analytic {v_p:.0f} tok/s, the prefiller measured "
+                 f"{f['prefill_tok_s']:.0f} (analytic / measured "
+                 f"{v_p / f['prefill_tok_s']:.2f})"]
+        for kind, what, want in (
+                ("decode", "decode step at B=4, ctx 1024",
+                 hardware.decode_iter_time(cfg, inst, 4, 1024)),
+                ("prefill", "1024-token prefill",
+                 hardware.prefill_time(cfg, inst, 1024))):
+            got, want = f[kind], 1e3 * want
+            parts.append(f"{what} analytic {want:.2f} ms, " + (
+                "device and wall not measured" if got is None else
+                f"device {got['device_ms']:.2f} ms "
+                f"({got['device_ms'] / want:.2f}x), wall "
+                f"{got['wall_ms']:.2f} ms ({got['wall_ms'] / want:.2f}x)"))
+        log(f"[control] {arch}: " + "; ".join(parts))
+
+
+def control_convertible(card):
+    """Part 3 of phase 11: a full-width Llama-3.1-8B convertible Engine at
+    the chunk C that plan_convertible picks for one H100 (4 slots):
+    3 requests decoding, then 2 burst prompts of 3000-3800 tokens, the
+    second admitted once the first has left chunked mode (an Engine
+    chunks one prompt at a time), at max_len CONVERTIBLE_MAX_LEN: a
+    prompt's second chunk is cut at the cache's end (phase 2 holds both
+    attention kernels against their plain versions at these shapes).
+    Every request must complete and a mixed step must run a chunk of
+    exactly the planned size; then one mixed step (B=3 decoding, a
+    planned-size chunk) under torch.profiler beside Eq. 5's
+    prediction."""
+    from repro_torch.core import CHIPS, InstanceSpec
+    from repro_torch.core.velocity import mixed_iter_time
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import Engine, Request
+    cfg, model = full_model("llama31_8b", "control")
+    inst = InstanceSpec(CHIPS["h100"], 1)
+    plan = convertible_plan(cfg)
+    C = plan.chunk_size
+    eq5 = {b: 1e3 * mixed_iter_time(cfg, inst, b, PLAN_ARGS["avg_ctx"], C)
+           for b in (3, 4)}
+    log(f"[control] plan_convertible({cfg.name}, h100 TP 1, {PLAN_ARGS}): "
+        f"chunk {C} tokens, V_D^P' {plan.v_prefill:.0f} tok/s; Eq. 5 mixed "
+        f"step {eq5[3]:.2f} ms at B=3, {eq5[4]:.2f} ms at B=4 (TPOT SLO "
+        "100 ms)")
+    rng = np.random.RandomState(0)
+
+    def req(rid, lo, hi, new):
+        return Request(rid=rid, prompt=rng.randint(
+            0, cfg.vocab_size, size=(int(rng.randint(lo, hi + 1)),)
+        ).astype(np.int32), max_new_tokens=new)
+    decoding = [req(i, 900, 1150, 16) for i in range(3)]
+    bursts = [req(3 + i, 3000, 3800, 8) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    # ---- phase 11's engine: counters run from here ...
+    t0 = time.perf_counter()
+    eng = Engine(cfg, model, num_slots=4, max_len=CONVERTIBLE_MAX_LEN,
+                 chunk_size=C)
+    for r in decoding:
+        eng.add_request(r)
+    eng.step()
+    chunks = []                                 # (tokens, wall s) a step
+    for b in bursts:
+        eng.add_request(b)              # waits until a slot frees
+        while b.prefill_done < len(b.prompt):
+            p, w = eng.pending_chunked, eng.mixed_wall_s
+            before = p.prefill_done if p is not None else 0
+            eng.step()
+            if p is not None:
+                chunks.append((p.prefill_done - before, eng.mixed_wall_s - w))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = {n: kops.LAUNCHES[n]
+                for n in ("chunked_prefill_attention", "decode_attention")}
+    # ... to here
+    wall = time.perf_counter() - t0
+    reqs = decoding + bursts
+    done = sum(len(r.output) == r.max_new_tokens for r in reqs)
+    mean_ms = 1e3 * eng.mixed_wall_s / max(eng.mixed_steps, 1)
+    log(f"[control] convertible Engine: requests completed {done}/"
+        f"{len(reqs)} in {wall:.1f} s; prompt lengths "
+        f"{[len(r.prompt) for r in reqs]}, max_len {eng.max_len}; mixed "
+        f"steps {eng.mixed_steps} "
+        f"(chunks {[n for n, _ in chunks]}, walls "
+        f"{[round(1e3 * s, 1) for _, s in chunks]} ms), mean "
+        f"{mean_ms:.2f} ms; decode steps {eng.decode_steps}, mean "
+        f"{1e3 * eng.decode_wall_s / max(eng.decode_steps, 1):.2f} ms; "
+        f"kernel launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(done == len(reqs), "control: not every request completed")
+    check(any(n == C for n, _ in chunks),
+          f"control: no mixed step ran a {C}-token chunk: {chunks}")
+    check(all(n > 0 for n in launches.values()),
+          f"control: launches {launches}")
+    # one mixed step under the profiler: 3 decoding, a C-token chunk
+    for r in [req(10 + i, 900, 1150, 4) for i in range(3)] \
+            + [req(13, 3000, 3800, 2)]:
+        eng.add_request(r)
+    check(eng.pending_chunked is not None and eng.pending_chunked.rid == 13,
+          "control: the profiled step has no chunk")
+    wall_us, kinds, n, n_attn = _profiled(eng.step)
+    eng.run_until_drained()
+    if n == 0:
+        log("[control] mixed step breakdown: not measured (the profiler "
+            "recorded no device events)")
+        return
+    per = {k: round(v / 1e3, 3) for k, v in kinds.items()}
+    log(f"[control] one mixed step (B=3 decoding + a {C}-token chunk) "
+        f"under the profiler, on {card}: wall {wall_us / 1e3:.2f} ms, "
+        f"device {sum(kinds.values()) / 1e3:.2f} ms by kind {per}; {n} "
+        f"kernels ({n_attn} attention); device idle share "
+        f"{1 - sum(kinds.values()) / wall_us:.3f}; Eq. 5 predicts "
+        f"{eq5[3]:.2f} ms, the TPOT SLO is 100 ms; unprofiled mixed steps' "
+        f"mean wall {mean_ms:.2f} ms")
+
+
+def phase_control(figures, card):
+    """The paper's control plane and both cluster simulators on the card's
+    machine (no JAX there), beside the card's own Token Velocities: the
+    golden fixtures, the velocity table, and the Convertible Decoder at
+    the chunk its planner picks for the card."""
+    control_goldens()
+    control_velocity(figures, card)
+    control_convertible(card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1850,18 +2213,21 @@ def main() -> int:
         log(f"[phase] {phase.__name__[6:]}: {time.perf_counter() - t:.1f} s")
         return out
 
-    timed(phase_build)
+    card = timed(phase_build)
     errs, rows = timed(phase_parity)
-    launches = timed(phase_serve)
+    figures = {}
+    launches, figures["llama31_8b"] = timed(phase_serve)
     launches["paged_decode_attention"] = timed(phase_paged)
     launches["wkv6"] = timed(phase_rwkv)
     for name, n in timed(phase_gemma).items():
         launches[f"{name}_d256"] = n
     timed(phase_exact)
-    for name, n in timed(phase_qwen).items():
+    qwen, figures["qwen25_32b"] = timed(phase_qwen)
+    for name, n in qwen.items():
         launches[f"{name}_qwen"] = n
-    timed(phase_deepseek)
+    figures["deepseek_v2_lite_16b"] = timed(phase_deepseek)
     timed(phase_vision)
+    timed(phase_control, figures, card)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),

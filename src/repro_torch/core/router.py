@@ -156,7 +156,7 @@ class Router:
 
     def __init__(self, burst_detector: Optional[BurstDetector] = None):
         self.burst = burst_detector or BurstDetector()
-        # flight-recorder tap (repro.obs): when set, every route_prefill
+        # flight-recorder tap (repro_torch.obs): when set, every route_prefill
         # outcome is reported as hook(t, kind, target, in_len, priority,
         # slo).  None (the default) keeps the hot path decision-free
         # beyond one attribute test — telemetry-off runs are byte- and

@@ -242,7 +242,11 @@ class Engine:
         C = self.chunk_size
         start = req.prefill_done
         L = len(req.prompt)
-        chunk = np.zeros((1, C), np.int32)
+        # The chunk is padded to C, but cut at the cache's end: a later
+        # chunk's C rows from `start` may run past max_len (the reference
+        # pads to C regardless and its cache write clamps onto earlier
+        # rows).  The prompt's own tokens fit whenever the prompt fits.
+        chunk = np.zeros((1, min(C, self.max_len - start)), np.int32)
         n = min(C, L - start)
         chunk[0, :n] = req.prompt[start:start + n]
         slot = req.slot

@@ -68,6 +68,20 @@ def test_engine_tokens_equal_reference(setup, kw):
         assert eng.mixed_steps > 0
 
 
+def test_engine_chunk_is_cut_at_the_cache_end(setup):
+    """A chunked prompt whose second chunk, padded to the chunk size, would
+    run past max_len (a 16-token chunk at offset 16 of a 30-row cache):
+    the chunk is cut at the cache's end and the tokens are the reference's
+    greedy ones (the reference's own Engine clamps that write onto earlier
+    rows)."""
+    cfg, model, _, _, prompts, refs = setup
+    eng, reqs = _run_engine(cfg, model, [prompts[0], prompts[3]],
+                            num_slots=2, max_len=30, chunk_size=16)
+    assert eng.mixed_steps == 2
+    for r, ref in zip(reqs, [refs[0], refs[3]]):
+        assert np.array_equal(np.array(r.output), ref), r.rid
+
+
 def test_engine_memory_accounting(setup):
     cfg, model, _, _, prompts, _ = setup
     eng = Engine(cfg, model, num_slots=4, max_len=64)
