@@ -111,6 +111,33 @@ Phases (any failure exits non-zero; nothing is skipped):
                5's prediction and the 100 ms TPOT SLO; its attention
                launches are printed on its own line, not in the kernels
                line
+ 12. train   — training, gradients through the prefill and WKV6 kernels:
+               (a) the two differentiable wrappers (kernel forward, the
+               plain version's VJP as backward) against autograd of the
+               plain versions, outputs and every input gradient (nonzero,
+               finite; 2e-5 f32, 3e-2 bf16, 2e-4 WKV6): prefill at
+               Llama-3.1-8B's heads (B=1, S=2048) in bf16 and f32, at
+               Gemma-2-9B's D = 256 with softcap 50 and a window of 4096
+               that bites (S=4608), WKV6 at RWKV-6 3B's heads (S=1024)
+               from a zero and a carried state; (b) f32 SMOKE Llama,
+               Gemma-2 past its window, RWKV-6, DeepSeek-V2-Lite and Jamba:
+               every leaf's loss gradient through the kernels within 2e-4
+               of the leaf's largest |gradient| of the plain_kernels
+               path's, none missing or zero; gemma_2b SMOKE's loss drops
+               over 25 steps of 8 x 64, and a checkpoint round trip gives
+               the same next-step loss; (c) Llama-3.1-8B at its published
+               widths and depth (bf16, seed 0): 4 train steps of B=1 x
+               2048 from PackedDataset, remat, bf16 factored moments, lr
+               1e-2 without warmup (so that every bf16 leaf moves): finite
+               losses and grad norms, every leaf moves, the prefill
+               kernel launches; (d) RWKV-6 3B: 3 steps of B=1 x 1024 with
+               f32 moments, the WKV6 kernel launches; for (c) and (d) per
+               step wall, loss, grad norm, tokens/s, the peak memory,
+               and the last step under torch.profiler (device time by
+               kind: the kernels, their plain backward, matmul, the
+               optimizer, other; the idle share; model FLOPs over the
+               wall against 989 TFLOP/s); its launches are printed on
+               their own line, not in the kernels line
 
 Phases run in this order, one after another; each frees its model before
 the next, and each one's wall time is printed as "[phase] name: s".
@@ -120,6 +147,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2198,6 +2226,341 @@ def phase_control(figures, card):
     control_convertible(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training, with gradients through the prefill and WKV6 kernels
+# ---------------------------------------------------------------------------
+
+# f32 SMOKE configs and their sequence lengths: gemma2's past its 64-token
+# window, jamba's attention layer beside Mamba + MoE, deepseek's MLA (no
+# attention kernel), rwkv6's WKV6
+TRAIN_SMOKE = [("llama31_8b", 32), ("gemma2_9b", 96), ("rwkv6_3b", 40),
+               ("deepseek_v2_lite_16b", 32), ("jamba_v0_1_52b", 40)]
+GRAD_TOL = 2e-4          # of each leaf's largest |gradient| (the CPU tests')
+# the full-width steps' schedule: no warmup and lr 1e-2, so that a bf16
+# leaf of ones (a norm) moves by more than half its 2^-7 step
+TRAIN_LR = dict(lr=1e-2, warmup_steps=0)
+
+
+def _vjp_pair(kernel, plain, inputs, cots):
+    """(outputs, gradients) of sum(out * cot) through `kernel` (the
+    Function: kernel forward, plain VJP) and through `plain` (autograd of
+    the plain version), from the same leaves."""
+    res = []
+    for fn in (kernel, plain):
+        xs = [x.detach().requires_grad_() for x in inputs]
+        out = fn(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        res.append(([o.detach() for o in out],
+                    torch.autograd.grad(out, xs, cots)))
+    return res
+
+
+def _judge_grads(tag, names, res, tol):
+    """Each output and gradient of the kernel path within `tol` (the
+    reference's close rule) of the plain path's, and each gradient nonzero
+    and finite."""
+    (ko, kg), (po, pg) = res
+    errs = {}
+    for name, a, b in [(f"out{i}", x, y) for i, (x, y) in
+                       enumerate(zip(ko, po))] + list(zip(names, kg, pg)):
+        errs[name] = max_err(a, b)
+        ok = close(a, b, tol)
+        if name in names:
+            ok = ok and bool(torch.isfinite(a).all()) \
+                and a.abs().max().item() > 0
+        check(ok, f"{tag}: {name} differs from the plain path's, or is "
+              f"zero or not finite ({errs[name]:.3g})")
+    log(f"[train] {tag}: outputs and gradients within {tol} of the plain "
+        f"path's, each gradient nonzero and finite; max |diff| "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }")
+
+
+def train_function_grads():
+    """Phase 12 (a): the two differentiable wrappers with the kernel in
+    their forward against autograd of the plain versions: prefill at
+    Llama-3.1-8B's heads (B=1, S=2048) in bf16 and f32, at Gemma-2-9B's
+    D = 256 with softcap 50 and a window of 4096 that bites (S=4608), WKV6
+    at RWKV-6 3B's heads (S=1024, f32) from a zero and a carried state."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for tag, (S, Hq, Hkv, D, window, cap) in (
+            ("prefill, Llama heads", (2048, 32, 8, 128, 0, 0.0)),
+            ("prefill, Gemma-2 D=256", (4608, 16, 8, 256, 4096, 50.0))):
+        for dt in (torch.bfloat16, torch.float32):
+            q = _rand(g, (1, S, Hq, D), dt)
+            k, v = (_rand(g, (1, S, Hkv, D), dt) for _ in range(2))
+            off, lens = i32([0]), i32([S])
+            args = dict(window=window, softcap=cap)
+            res = _vjp_pair(
+                lambda q, k, v: kops.prefill_attention(q, k, v, off, lens,
+                                                       **args),
+                lambda q, k, v: ref.chunked_prefill_attention_ref(
+                    q, k, v, off, lens, **args),
+                (q, k, v), (_rand(g, (1, S, Hq, D), dt),))
+            _judge_grads(f"{tag}, S={S}, {str(dt)[6:]}", ["dq", "dk", "dv"],
+                         res, TOL[dt])
+            del res, q, k, v
+            torch.cuda.empty_cache()
+    for zero in (True, False):
+        ins = _wkv_inputs(g, 1, 1024, 40, 64, model_decay=True, s0_zero=zero)
+        res = _vjp_pair(kops.wkv6_op, ref.wkv6_chunked, ins,
+                        (_rand(g, (1, 1024, 40, 64), torch.float32),
+                         _rand(g, (1, 40, 64, 64), torch.float32)))
+        _judge_grads(f"WKV6, RWKV-6 3B heads, S=1024, "
+                     f"{'zero' if zero else 'carried'} state",
+                     ["dr", "dk", "dv", "dw", "du", "ds0"], res, WKV_TOL)
+
+
+def _noisy_zero_leaves(model, seed):
+    """Small noise on the leaves that start at zero (RWKV-6's lora and
+    decay up-projections, biases), so that every path carries a
+    gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=g,
+                                           device="cuda"))
+
+
+def train_smoke():
+    """Phase 12 (b): f32 SMOKE train steps on the card.  Every leaf's
+    gradient through the kernels equals the plain_kernels path's (each
+    within GRAD_TOL of the leaf's largest |gradient|), none is missing or
+    zero; gemma_2b's loss drops over the reference's loss-drop steps (25
+    of 8 x 64), and a checkpoint round trip gives the same next-step
+    loss."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, DataConfig, PackedDataset,
+                                      adamw_init, lm_loss, make_train_step,
+                                      restore, save, train)
+    for arch, S in TRAIN_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        _noisy_zero_leaves(model, 1)
+        model.requires_grad_(True)
+        toks, labels = PackedDataset(DataConfig(cfg.vocab_size, S, 2)).batch(0)
+        params = list(model.parameters())
+        kops.reset_launches()
+        lk, _ = lm_loss(cfg, model, toks, labels)
+        gk = torch.autograd.grad(lk, params)
+        launched = dict(kops.LAUNCHES)
+        lp, _ = lm_loss(cfg, model, toks, labels, plain_kernels=True)
+        gp = torch.autograd.grad(lp, params)
+        check(kops.LAUNCHES == launched,
+              f"{arch}: the plain path or a backward launched a kernel")
+        shares = [((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(gk, gp)]
+        zero = sum(b.abs().max().item() == 0 for b in gp)
+        finite = all(bool(torch.isfinite(a).all()) for a in gk)
+        kernel = {"rwkv6_3b": "wkv6", "deepseek_v2_lite_16b": None}.get(
+            arch, "chunked_prefill_attention")
+        log(f"[train] {cfg.name} SMOKE f32, B=2 S={S}: loss kernels "
+            f"{lk.item():.6f} / plain {lp.item():.6f}; {len(gk)} leaves, "
+            f"each present, {zero} zero; largest |diff| / max|grad| of a "
+            f"leaf {max(shares):.3g}; launches {launched}")
+        check(finite and zero == 0 and max(shares) <= GRAD_TOL
+              and abs(lk.item() - lp.item()) <= GRAD_TOL * abs(lp.item()),
+              f"{arch}: SMOKE gradients through the kernels")
+        check(launched[kernel] > 0 if kernel else
+              sum(launched.values()) == 0, f"{arch}: launches {launched}")
+    cfg = get_config("gemma_2b", smoke=True)
+    t = time.perf_counter()
+    params, res = train(cfg, steps=25, batch=8, seq_len=64, log_every=0,
+                        device="cuda")
+    log(f"[train] {cfg.name} SMOKE, 25 steps of 8 x 64 on the card: loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f} in "
+        f"{time.perf_counter() - t:.1f} s")
+    check(res.losses[-1] < res.losses[0] - 0.2, "gemma_2b loss did not drop")
+    opt_cfg = AdamWConfig(total_steps=30, warmup_steps=5)
+    toks, labels = PackedDataset(DataConfig(cfg.vocab_size, 64, 8)).batch(25)
+    step_fn = make_train_step(cfg, opt_cfg, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        save(d, params, step=res.steps)
+        got, step = restore(d, like=params)
+    losses = [float(step_fn(p, adamw_init(p, opt_cfg), toks, labels)[2]
+                    ["loss"]) for p in (params, got)]
+    log(f"[train] checkpoint round trip at step {step}: next-step loss "
+        f"{losses[0]!r} / restored {losses[1]!r}")
+    check(step == 25 and losses[0] == losses[1],
+          "the restored model's next-step loss differs")
+
+
+def _train_by_kind(prof):
+    """Device microseconds of one profiled train step by kind: the prefill
+    and WKV6 kernels, the plain backward of attention and of WKV6 (the
+    kernels that the host ops inside their autograd nodes launched), the
+    optimizer (inside the step's "adamw_update" range), and the rest's
+    matmuls and other kernels.  A host op may list a kernel that another
+    op with the same correlation id lists too, so each range takes a
+    kernel only while the device's own record has one left of that name
+    and duration: each kernel counts once.  Also the number of device
+    events."""
+    import collections
+
+    def kind(name):
+        name = name.lower()
+        if "prefill_" in name:
+            return "prefill kernel"
+        if "wkv6_" in name:
+            return "wkv6 kernel"
+        if any(w in name for w in ("gemm", "gemv", "xmma", "nvjet",
+                                   "cutlass", "matmul")):
+            return "matmul"
+        return "other"
+
+    def under(e):
+        # a range timed with CUDA events also lists itself as a kernel of
+        # its own name: that is its children's time again, so skip it
+        out = [k for k in e.kernels if k.name != e.name]
+        for ch in e.cpu_children:
+            out += under(ch)
+        return out
+    ranges = {"_PrefillAttentionBackward": "plain backward attention",
+              "_WKV6Backward": "plain backward wkv6",
+              "adamw_update": "optimizer"}
+    kinds = dict.fromkeys(("prefill kernel", "wkv6 kernel",
+                           "plain backward attention", "plain backward wkv6",
+                           "optimizer", "matmul", "other"), 0.0)
+    # a range of the host's (adamw_update) is also drawn on the device
+    # timeline as a user annotation: a span, not a kernel
+    left = collections.Counter(
+        (e.name, e.time_range.elapsed_us()) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and e.name not in ranges)
+    n = sum(left.values())
+    for e in prof.events():
+        label = next((v for k, v in ranges.items() if k in e.name), None)
+        parent = e.cpu_parent.name if e.cpu_parent is not None else ""
+        if e.device_type != torch.autograd.DeviceType.CPU or label is None \
+                or any(k in parent for k in ranges if ranges[k] == label):
+            continue
+        for k in under(e):
+            if left[(k.name, k.duration)] > 0:
+                left[(k.name, k.duration)] -= 1
+                kinds[label] += k.duration
+    for (name, us), count in left.items():
+        kinds[kind(name)] += us * count
+    return kinds, n
+
+
+def _leaf_sample(p):
+    """Up to 65,536 evenly spaced elements of a leaf, copied."""
+    flat = p.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // 65536)].clone()
+
+
+def train_full(arch, seq, steps, opt_over, remat, counter, card,
+               every_leaf_moves=True):
+    """Phase 12 (c), (d): `steps` train steps of B=1 x `seq` tokens from
+    PackedDataset at the config's published widths and depth (bf16, seed
+    0), the last one under torch.profiler.  Checks: finite losses and
+    grad norms, the `counter` kernel launches, and with
+    `every_leaf_moves` every leaf moves."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import count_params
+    from repro_torch.training import (AdamWConfig, DataConfig, PackedDataset,
+                                      adamw_init, make_train_step)
+    from torch.profiler import ProfilerActivity, profile
+    cfg, model = full_model(arch, "train")
+    opt_cfg = AdamWConfig(total_steps=steps, **TRAIN_LR, **opt_over)
+    ds = PackedDataset(DataConfig(cfg.vocab_size, seq, 1))
+    step_fn = make_train_step(cfg, opt_cfg, remat=remat, device="cuda")
+    named = dict(model.named_parameters())
+    before = {n: _leaf_sample(p) for n, p in named.items()}
+    opt = adamw_init(model, opt_cfg)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {opt_cfg}, remat {remat}; params + moments "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    walls = []
+    for i in range(steps):
+        toks, labels = ds.batch(i)
+        last = i == steps - 1
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if last \
+            else contextlib.nullcontext()
+        with prof:
+            t = time.perf_counter()
+            model, opt, m = step_fn(model, opt, toks, labels)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        walls.append(wall)
+        log(f"[train] {cfg.name} step {i}{' (profiled)' if last else ''}: "
+            f"wall {wall * 1e3:.1f} ms, loss {loss:.4f}, grad norm "
+            f"{gn:.4f}, lr {float(m['lr']):.3e}, {seq / wall:.0f} tokens/s "
+            f"({card})")
+        check(math.isfinite(loss) and math.isfinite(gn),
+              f"{arch}: step {i} not finite")
+    launches = dict(kops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    still = [n for n, p in named.items()
+             if torch.equal(_leaf_sample(p), before[n])]
+    log(f"[train] {cfg.name}: {len(named) - len(still)} of {len(named)} "
+        f"leaves moved; peak {peak:.2f} GiB; launches over the {steps} "
+        f"steps {launches} ({card})")
+    if still:
+        log(f"[train] {cfg.name}: leaves that did not move: {still[:8]}"
+            f"{' ...' if len(still) > 8 else ''}")
+    check(not (every_leaf_moves and still), f"{arch}: leaves did not move")
+    check(launches[counter] > 0, f"{arch}: {counter} never launched")
+    kinds, n = _train_by_kind(prof)
+    wall_us = walls[-1] * 1e6
+    busy = sum(kinds.values())
+    n_model = count_params(model) - model.embed.numel()
+    attn = 3 * 4 * cfg.num_heads * cfg.head_dim_ * seq * (seq + 1) / 2 * sum(
+        s.mixer in ("attn", "local_attn") for s in cfg.layer_specs)
+    flops = 6 * n_model * seq + (attn if counter != "wkv6" else 0)
+    if n == 0:
+        log("[train] step breakdown: not measured (the profiler recorded "
+            "no device events)")
+    else:
+        log(f"[profile] {cfg.name} train step B=1 S={seq}: wall "
+            f"{walls[-1] * 1e3:.1f} ms under the profiler; device ms by "
+            f"kind { {k: round(v / 1e3, 3) for k, v in kinds.items()} }; "
+            f"{n} kernels; device idle share {1 - busy / wall_us:.3f} "
+            f"({card})")
+    steady = float(np.mean(walls[1:-1]))     # after the first, unprofiled
+    log(f"[train] {cfg.name}: model FLOPs a step {flops / 1e12:.2f} T "
+        f"(6 x {n_model / 1e9:.3f} B non-embedding params x {seq} tokens"
+        f"{' + causal attention' if counter != 'wkv6' else ''}); over the "
+        f"mean wall of steps 1-{steps - 2}, {steady * 1e3:.1f} ms: "
+        f"{flops / steady / 1e12:.1f} TFLOP/s, "
+        f"{flops / steady / PEAK_OPS[torch.bfloat16]:.3f} of 989 TFLOP/s; "
+        f"profiled step {flops / walls[-1] / 1e12:.1f} TFLOP/s ({card})")
+    del model, opt, named, before
+    return launches[counter]
+
+
+def phase_train(card):
+    """(a) the differentiable wrappers' gradients on the card, (b) f32
+    SMOKE train steps through the kernels against the plain path, (c)
+    Llama-3.1-8B and (d) RWKV-6 3B taking train steps at full width."""
+    train_function_grads()
+    train_smoke()
+    launches = {
+        "chunked_prefill_attention": train_full(
+            "llama31_8b", 2048, 4, dict(moment_dtype="bfloat16",
+                                        factored=True), True,
+            "chunked_prefill_attention", card)}
+    torch.cuda.empty_cache()
+    # RWKV-6's decay_B starts at zero, so mu_w has no gradient until it
+    # moves: not every leaf moves in 3 steps (the counts are printed)
+    launches["wkv6"] = train_full("rwkv6_3b", 1024, 3, {}, False, "wkv6",
+                                  card, every_leaf_moves=False)
+    log(f"[train] phase 12 launches (not in the kernels line): {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2228,6 +2591,7 @@ def main() -> int:
     figures["deepseek_v2_lite_16b"] = timed(phase_deepseek)
     timed(phase_vision)
     timed(phase_control, figures, card)
+    timed(phase_train, card)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),

@@ -8,6 +8,16 @@ tensors it is given: on the CPU it runs the plain version in
 the kernel does not take the inputs or fails to launch.  There is no
 switch and no fallback.  ``LAUNCHES`` counts the kernel launches, so a run
 can show that it went through the kernels.
+
+``prefill_attention`` and ``wkv6_op`` are differentiable, through one
+``torch.autograd.Function`` each (``_PrefillAttention``, ``_WKV6``), on
+every device: the forward is the dispatch above, and the backward is the
+vector-Jacobian product of the plain version, recomputed from the saved
+inputs.  That backward is the one place where the plain versions run when
+a card is present: the reference's kernels have no VJP (it trains through
+its plain attention and chunked WKV6), so there is no backward kernel to
+port.  The decode wrappers are not on the training path and take no
+gradient.
 """
 from __future__ import annotations
 
@@ -63,9 +73,51 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel failed to launch (error {err})")
 
 
+def _vjp(plain, inputs, needs, grads):
+    """The gradients of `plain(*inputs)` for the output gradients `grads`,
+    with respect to the inputs whose `needs` flag is set (None for the
+    others): the plain version recomputed under autograd from detached
+    copies of the saved inputs."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        out = plain(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        got = iter(torch.autograd.grad(
+            out, [x for x in xs if x.requires_grad], grads))
+    return [next(got) if x.requires_grad else None for x in xs]
+
+
+class _PrefillAttention(torch.autograd.Function):
+    """Forward: ``_prefill_forward`` (the kernel on a card).  Backward: the
+    VJP of ``ref.chunked_prefill_attention_ref`` for q, k and v; offset and
+    lengths take none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offset, lengths, window, softcap, scale):
+        ctx.save_for_backward(q, k, v, offset, lengths)
+        ctx.args = (window, softcap, scale)
+        return _prefill_forward(q, k, v, offset, lengths, window, softcap,
+                                scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, offset, lengths = ctx.saved_tensors
+        dq, dk, dv = _vjp(
+            lambda q, k, v: ref.chunked_prefill_attention_ref(
+                q, k, v, offset, lengths, *ctx.args),
+            (q, k, v), ctx.needs_input_grad[:3], (dout,))
+        return dq, dk, dv, None, None, None, None, None
+
+
 def prefill_attention(q, k, v, offset, lengths, window: int = 0,
                       softcap: float = 0.0, scale: Optional[float] = None):
-    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) chunked/whole prefill attention."""
+    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) chunked/whole prefill attention,
+    differentiable in q, k and v (``_PrefillAttention``)."""
+    return _PrefillAttention.apply(q, k, v, offset, lengths, int(window),
+                                   float(softcap), scale)
+
+
+def _prefill_forward(q, k, v, offset, lengths, window, softcap, scale):
     if q.device.type == "cpu":
         return ref.chunked_prefill_attention_ref(
             q, k, v, offset, lengths, window=window, softcap=softcap,
@@ -221,15 +273,38 @@ def wkv6_segment(S: int, B: int, H: int, chunk: int) -> tuple[int, int]:
     return seg, -(-max(S, 1) // seg)
 
 
+class _WKV6(torch.autograd.Function):
+    """Forward: ``_wkv6_forward`` (the kernel on a card).  Backward: the
+    VJP of ``ref.wkv6_chunked`` for r, k, v, w, u and s0."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.chunk = chunk
+        return _wkv6_forward(r, k, v, w, u, s0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        grads = _vjp(
+            lambda *x: ref.wkv6_chunked(*x, chunk=ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], (dy, dsT))
+        return (*grads, None)
+
+
 def wkv6_op(r, k, v, w, u, s0, chunk: int = 16):
     """(B,S,H,K)-layout WKV6: r, k, v, w (B,S,H,K), u (H,K), s0 (B,H,K,K),
     all f32 -> (y (B,S,H,K), sT (B,H,K,K)).  A ragged tail needs no
     padding: the kernel treats positions past S as w = 1, k = 0.
+    Differentiable in all six inputs (``_WKV6``).
 
     On the card: three passes over segments of ``wkv6_segment(S, B, H,
     chunk)`` tokens (every segment's decay and state contribution, the scan
     over segments, every segment's outputs), with scratch of
     (nseg - 1) * B * H * (K * K + K) floats from ``torch.empty``."""
+    return _WKV6.apply(r, k, v, w, u, s0, int(chunk))
+
+
+def _wkv6_forward(r, k, v, w, u, s0, chunk):
     if r.device.type == "cpu":
         return ref.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
     B, S, H, K = r.shape

@@ -14,7 +14,10 @@ a function here with a kernel's own arithmetic, for the tests:
 tiles and P rounding) and ``wkv6_segmented`` (the WKV6 kernel's three
 passes over segments).  The CPU path of
 every wrapper in ``kernels/ops.py`` runs these; on the card they are what
-the kernels are held against.
+the kernels are held against, and the attention and WKV6 wrappers'
+backward passes differentiate ``chunked_prefill_attention_ref`` and
+``wkv6_chunked``.  Both compute in f32, or in f64 when given f64 (for
+``torch.autograd.gradcheck``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,11 @@ from typing import Optional
 import torch
 
 NEG_INF = -2.0 ** 30
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic's dtype: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def chunked_prefill_attention_ref(
@@ -43,8 +51,9 @@ def chunked_prefill_attention_ref(
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    qq = q.reshape(B, Sq, Hkv, G, D).float()
-    s = torch.einsum("bqkgd,blkd->bkgql", qq, k.float()) * scale
+    acc = _acc(q.dtype)
+    qq = q.reshape(B, Sq, Hkv, G, D).to(acc)
+    s = torch.einsum("bqkgd,blkd->bkgql", qq, k.to(acc)) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     dev = q.device
@@ -56,7 +65,7 @@ def chunked_prefill_attention_ref(
         mask &= k_pos > (q_pos[:, :, None] - window)
     s = torch.where(mask[:, None, None], s, torch.tensor(NEG_INF, device=dev))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgql,blkd->bqkgd", p, v.float())
+    o = torch.einsum("bkgql,blkd->bqkgd", p, v.to(acc))
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
@@ -306,7 +315,7 @@ def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 16):
         r, k, v, w = ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
     strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=r.device), diagonal=-1)
-    s = s0.float()
+    s = s0.to(_acc(s0.dtype))
     ys = []
     for c0 in range(0, S + pad, chunk):
         rc, kc, vc, wc = (x[:, c0:c0 + chunk] for x in (r, k, v, w))

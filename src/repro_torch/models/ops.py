@@ -13,11 +13,11 @@ default and what the kernel path is compared with.  MLA, cross-attention,
 MoE and Mamba have no kernel in the reference either: they are plain
 torch ops on every device.  Train mode (``forward_train``) has no state:
 attention runs over the sequence's own keys, through the prefill kernel
-at offset 0.  An int8 KV cache is quantised on write (``_quant_kv``) and
-dequantised to the activation dtype before attention, so the kernels see
-bf16 / f32.  Accumulations are f32; activations run in cfg.dtype.  The
-state (KV caches, latent caches, image keys / values, recurrent states) is
-updated in place.
+at offset 0, and the recurrent layers start from zero.  An int8 KV cache
+is quantised on write (``_quant_kv``) and dequantised to the activation
+dtype before attention, so the kernels see bf16 / f32.  Accumulations
+are f32; activations run in cfg.dtype.  The state (KV caches, latent
+caches, image keys / values, recurrent states) is updated in place.
 """
 from __future__ import annotations
 
@@ -458,11 +458,14 @@ def _last_valid(h, ctx: ApplyCtx):
 
 
 def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    """With no state (train mode) the shift and the WKV state start at
+    zero and nothing is written."""
     B, S, d = x.shape
     K = cfg.rwkv_head_dim
     H = d // K
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
-    sx = _token_shift(h, state["shift_t"].to(h.dtype))
+    shift0 = x.new_zeros(B, d) if state is None else state["shift_t"]
+    sx = _token_shift(h, shift0.to(h.dtype))
     xxx = h + sx * p.mu_x
     lora = torch.tanh(xxx @ p.lora_A).reshape(B, S, 5, _RWKV_LORA)
     mixes = torch.einsum("bsln,lnd->bsld", lora, p.lora_B)
@@ -481,7 +484,8 @@ def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
         m = (ctx.positions < ctx.lengths[:, None])[:, :, None, None]
         w = torch.where(m, w, 1.0)
         k = k * m
-    s0 = state["wkv"].float()
+    s0 = (torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
+          if state is None else state["wkv"].float())
     if S == 1:
         y, sT = rwkv_wkv(r, k, v, w, u, s0)
     elif ctx.plain_kernels:
@@ -494,17 +498,21 @@ def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     y = (y - mu) * torch.rsqrt(var + 64e-5)
     y = y.reshape(B, S, d) * p.lnx_g.float() + p.lnx_b.float()
     out = (y.to(x.dtype) * g) @ p.wo
-    state["wkv"].copy_(sT)
-    state["shift_t"].copy_(_last_valid(h, ctx))
+    if state is not None:
+        state["wkv"].copy_(sT)
+        state["shift_t"].copy_(_last_valid(h, ctx))
     return out.to(x.dtype), state
 
 
 def apply_rwkv_cm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
-    sx = _token_shift(h, state["shift_c"].to(h.dtype))
+    shift0 = x.new_zeros(x.shape[0], x.shape[2]) if state is None \
+        else state["shift_c"]
+    sx = _token_shift(h, shift0.to(h.dtype))
     xk = h + sx * p.mu_ck
     xr = h + sx * p.mu_cr
     kk = torch.square(torch.relu(xk @ p.wk_cm))
     out = torch.sigmoid(xr @ p.wr_cm) * (kk @ p.wv_cm)
-    state["shift_c"].copy_(_last_valid(h, ctx))
+    if state is not None:
+        state["shift_c"].copy_(_last_valid(h, ctx))
     return out.to(x.dtype), state

@@ -9,6 +9,7 @@ one to one (``from_jax_params``).  Where the reference stacks the repeated
 block's leaves under a leading ``num_blocks`` dim for ``lax.scan`` and
 keeps the ``first_k_dense`` layers apart under ``prefix``, the port keeps
 one ``DecoderLayer`` module per layer, prefix first, and loops over them.
+``to_jax_params`` stacks them back into the reference's tree.
 
 The state is one dict per layer, updated in place by the forward pass:
 ``{"k", "v"}`` (B, max_len, Hkv, D) caches for an attention layer (with
@@ -210,6 +211,7 @@ class Transformer(_Leaves):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(_top_leaves(cfg), DTYPES[cfg.param_dtype], device)
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, device) for spec in cfg.layer_specs)
 
@@ -263,11 +265,72 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+#: bf16 in numpy: raw 2-byte values, as ``np.asarray`` of the reference's
+#: bf16 arrays writes them to an npz (``ml_dtypes`` is not needed)
+BF16_RAW = np.dtype("V2")
+
+
 def _from_numpy(a) -> torch.Tensor:
     a = np.array(a)                     # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":      # ml_dtypes.bfloat16: not a torch type
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_RAW:
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 as raw 2-byte values
+    (``BF16_RAW``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RAW)
+    return t.numpy()
+
+
+def reference_paths(model: Transformer) -> dict[str, tuple[list[str], bool]]:
+    """Each leaf of the reference's tree, by its path ("embed",
+    "prefix/l0/wq", "blocks/p1/wq", ...), with the names of the model's
+    parameters that make it and whether the reference stacks them: a leaf
+    of the repeated block is, in block order, along a leading
+    ``num_blocks`` dim."""
+    cfg = model.cfg
+    out = {name: ([name], False) for name in model.leaves}
+    P = len(cfg.block_pattern)
+    for i, layer in enumerate(model.layers):
+        for n in layer.leaves:
+            if i < cfg.first_k_dense:
+                out[f"prefix/l{i}/{n}"] = ([f"layers.{i}.{n}"], False)
+            else:
+                j = (i - cfg.first_k_dense) % P
+                out.setdefault(f"blocks/p{j}/{n}", ([], True))[0].append(
+                    f"layers.{i}.{n}")
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """{"blocks/p0/wq": leaf, ...} as the reference's nested tree (with its
+    "prefix" and "blocks" even when empty)."""
+    tree: dict = {"prefix": {}, "blocks": {}}
+    for path, leaf in flat.items():
+        *parents, name = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = leaf
+    return tree
+
+
+def to_jax_params(cfg: ModelConfig, model: Transformer) -> dict:
+    """The inverse of ``from_jax_params``: the reference's ``init_params``
+    tree of the model's weights, numpy leaves in its layout (``prefix/l{i}``
+    apart, ``blocks/p{j}`` stacked on a leading ``num_blocks`` dim; bf16 as
+    raw 2-byte values)."""
+    if model.cfg != cfg:
+        raise ValueError(f"the model is a {model.cfg.name}, not {cfg.name}")
+    named = dict(model.named_parameters())
+    return nest({
+        path: (np.stack([to_numpy(named[n]) for n in names]) if stacked
+               else to_numpy(named[names[0]]))
+        for path, (names, stacked) in reference_paths(model).items()})
 
 
 @torch.no_grad()

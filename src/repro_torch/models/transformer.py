@@ -6,9 +6,12 @@ repeated block) takes the place of ``lax.scan``, and the state is updated
 in place (each entry point also returns the state, as the reference does).
 Lengths, chunk starts and cache lengths are taken on the host, where the
 serving loop keeps them.  A vision model's prefill takes the image as
-``image_embeds`` (B, num_vision_tokens, d_model).
+``image_embeds`` (B, num_vision_tokens, d_model).  The serving entry
+points run under ``torch.no_grad``; ``forward_train`` records a graph when
+the caller enables grad and the leaves require it (``training``).
 
-    forward_train(cfg, params, tokens, image_embeds=None, lengths=None)
+    forward_train(cfg, params, tokens, image_embeds=None, lengths=None,
+                  remat=False, plain_kernels=False)
         -> (logits (B, S, V) f32, aux)
     prefill(cfg, params, state, tokens, lengths, image_embeds=None,
             start=None) -> (last_logits (B, V) f32, state)
@@ -24,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ops
@@ -76,37 +80,42 @@ def _unembed(cfg: ModelConfig, params: Transformer, x):
 
 
 def _backbone(cfg: ModelConfig, params: Transformer, x, state,
-              ctx: ApplyCtx):
-    """Every layer in order.  Returns (x, the summed MoE aux loss)."""
+              ctx: ApplyCtx, remat: bool = False):
+    """Every layer in order.  With `remat` each layer runs under activation
+    checkpointing: its backward recomputes it from its input.  Returns (x,
+    the summed MoE aux loss)."""
     aux = 0.0
     for layer, st in zip(params.layers, state):
-        x, a = _apply_layer(cfg, layer, x, st, ctx)
+        if remat:
+            x, a = checkpoint(_apply_layer, cfg, layer, x, st, ctx,
+                              use_reentrant=False)
+        else:
+            x, a = _apply_layer(cfg, layer, x, st, ctx)
         aux = aux + a
     return x, aux
 
 
-@torch.no_grad()
 def forward_train(cfg: ModelConfig, params: Transformer, tokens,
-                  image_embeds=None, lengths=None):
+                  image_embeds=None, lengths=None, remat: bool = False,
+                  plain_kernels: bool = False):
     """Full-sequence causal forward with no cache, as the reference's
     ``forward_train``: every position's logits.  `lengths` (B,) masks keys
     at or past each row's valid length.  Attention goes through the prefill
-    kernel at offset 0 (on the CPU its plain version); Mamba layers scan
-    from a zero state.  A forward pass only: the reference's kernels have
-    no VJP, and the gradient path is a later slice.
+    kernel at offset 0 and RWKV-6 through the WKV6 kernel (on the CPU their
+    plain versions), both differentiable; Mamba and RWKV-6 layers start
+    from a zero state and write none.  `remat` checkpoints each layer (the
+    reference's ``jax.checkpoint`` over each scanned block);
+    `plain_kernels` runs the plain versions in place of the kernels, as
+    ``prefill``'s does.  Differentiable where the caller enables grad.
     Returns (logits (B, S, V) f32, aux), aux the MoE layers' summed
     load-balance loss (0 without MoE)."""
-    if any(s.mixer == "rwkv" for s in cfg.layer_specs):
-        raise NotImplementedError(
-            f"{cfg.name}: forward_train over RWKV layers is ported in a "
-            "later slice (ROADMAP A10)")
     dev = params.device
     tokens = _tokens(tokens, dev)
     B, S = tokens.shape
     ctx = _ctx("train", np.zeros(B, np.int64), S, dev, lengths,
-               image_embeds=image_embeds)
+               plain_kernels, image_embeds)
     x, aux = _backbone(cfg, params, _embed(cfg, params, tokens),
-                       [None] * len(params.layers), ctx)
+                       [None] * len(params.layers), ctx, remat)
     return _unembed(cfg, params, x), torch.as_tensor(
         aux, dtype=torch.float32, device=dev)
 

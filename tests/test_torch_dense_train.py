@@ -114,8 +114,11 @@ def test_leaves_and_abstract_params_match_reference(arch):
 
 
 def test_recurrent_models_are_refused():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tm.forward_train(get_config("rwkv6_3b", smoke=True),
-                         tm.abstract_params(get_config("rwkv6_3b",
-                                                       smoke=True)),
-                         np.zeros((1, 4), np.int32))
+    """No longer refused: forward_train over RWKV-6 layers is ported
+    (ROADMAP A10) and equals the reference's (from a zero state)."""
+    cfg, model, jcfg, jparams = _pair("rwkv6_3b")
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (1, 20))
+    want, _ = jm.forward_train(jcfg, jparams, jnp.asarray(toks))
+    got, aux = tm.forward_train(cfg, model, toks)
+    assert float(aux) == 0.0
+    _close(got, want)

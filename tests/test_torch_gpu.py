@@ -920,3 +920,115 @@ def test_zoo_forward_train_on_card_matches_cpu(cuda, arch):
         None if ie is None else ie.cpu(), [40, 33])
     _close(got.cpu(), want, 2e-4)
     _close(aux.cpu(), want_aux, 2e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the differentiable wrappers with the kernels in their forward
+# ---------------------------------------------------------------------------
+
+def _grads_both_ways(kernel, plain, inputs, cots):
+    """Outputs and input gradients of sum(out * cot) through `kernel` (the
+    wrapper's Function: kernel forward, the plain version's VJP) and
+    through autograd of `plain`."""
+    res = []
+    for fn in (kernel, plain):
+        xs = [x.detach().requires_grad_() for x in inputs]
+        out = fn(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        res.append((out, torch.autograd.grad(out, xs, cots)))
+    return res
+
+
+@pytest.mark.parametrize("case", [
+    # S, Hq, Hkv, D, window, softcap, dtype
+    (2048, 32, 8, 128, 0, 0.0, torch.bfloat16),
+    (2048, 32, 8, 128, 0, 0.0, torch.float32),
+    (640, 16, 8, 256, 512, 50.0, torch.bfloat16),
+    (640, 16, 8, 256, 512, 50.0, torch.float32)],
+    ids=["llama-bf16", "llama-f32", "gemma2-d256-window-bf16",
+         "gemma2-d256-window-f32"])
+def test_prefill_attention_grads_through_the_kernel(cuda, case):
+    """The forward launches the kernel, the gradients are the plain
+    version's: dq, dk, dv equal autograd of the plain version (2e-5 f32,
+    3e-2 bf16), nonzero and finite."""
+    S, Hq, Hkv, D, window, cap, dt = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(g, 1, S, Hq, D, dtype=dt)
+    k, v = _randn(g, 1, S, Hkv, D, dtype=dt), _randn(g, 1, S, Hkv, D, dtype=dt)
+    off = torch.zeros(1, dtype=torch.int32, device=cuda)
+    lens = torch.full((1,), S, dtype=torch.int32, device=cuda)
+    kops.reset_launches()
+    (ko, kg), (po, pg) = _grads_both_ways(
+        lambda q, k, v: kops.prefill_attention(q, k, v, off, lens, window,
+                                               cap),
+        lambda q, k, v: ref.chunked_prefill_attention_ref(
+            q, k, v, off, lens, window, cap),
+        (q, k, v), (_randn(g, 1, S, Hq, D, dtype=dt),))
+    assert kops.LAUNCHES["chunked_prefill_attention"] == 1
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    _close(ko[0], po[0], tol)
+    for a, b in zip(kg, pg):
+        _close(a, b, tol)
+        assert bool(torch.isfinite(a).all()) and a.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("zero_state", [True, False], ids=["zero", "carried"])
+def test_wkv6_grads_through_the_kernel(cuda, zero_state):
+    """The same for WKV6 at RWKV-6 3B's heads (S=1024, f32, 2e-4): dr, dk,
+    dv, dw, du and ds0."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, S, H, K = 1, 1024, 40, 64
+    r, k, v = (_randn(g, B, S, H, K) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * _randn(g, B, S, H, K) - 1))
+    u = _randn(g, H, K)
+    s0 = torch.zeros(B, H, K, K, device=cuda) if zero_state \
+        else _randn(g, B, H, K, K)
+    kops.reset_launches()
+    (ko, kg), (po, pg) = _grads_both_ways(
+        kops.wkv6_op, ref.wkv6_chunked, (r, k, v, w, u, s0),
+        (_randn(g, B, S, H, K), _randn(g, B, H, K, K)))
+    assert kops.LAUNCHES["wkv6"] == 1
+    for a, b in list(zip(ko, po)) + list(zip(kg, pg)):
+        _close(a, b, 2e-4)
+    for a in kg:
+        assert bool(torch.isfinite(a).all()) and a.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("arch", ["llama31_8b", "gemma2_9b", "rwkv6_3b",
+                                  "jamba_v0_1_52b"])
+def test_train_step_gradients_on_card_match_plain(cuda, arch):
+    """An f32 SMOKE model's loss gradient through the kernels equals the
+    plain_kernels path's for every leaf (within 2e-4 of the leaf's largest
+    |gradient|), and one train step on the card lowers nothing to the CPU:
+    the step refuses a model on the other device."""
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    cfg = get_config(arch, smoke=True)
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    noise = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=noise,
+                                           device=cuda))
+    model.requires_grad_(True)
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 96))
+    labels = np.roll(toks, -1, 1)
+    params = list(model.parameters())
+    kops.reset_launches()
+    got = torch.autograd.grad(tt.lm_loss(cfg, model, toks, labels)[0], params)
+    assert kops.LAUNCHES["chunked_prefill_attention"] + \
+        kops.LAUNCHES["wkv6"] > 0
+    want = torch.autograd.grad(
+        tt.lm_loss(cfg, model, toks, labels, plain_kernels=True)[0], params)
+    for a, b in zip(got, want):
+        assert b.abs().max().item() > 0
+        assert (a - b).abs().max().item() <= 2e-4 * b.abs().max().item()
+    opt_cfg = tt.AdamWConfig(warmup_steps=0, lr=1e-3)
+    step = tt.make_train_step(cfg, opt_cfg)
+    _, _, m = step(model, tt.adamw_init(model, opt_cfg), toks, labels)
+    assert np.isfinite(float(m["loss"]))
+    with pytest.raises(ValueError, match="cuda"):
+        step(tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+             None, toks, labels)

@@ -175,12 +175,14 @@ def test_cache_writes_are_checked():
 
 
 def test_unported_layers_name_a_later_slice():
-    """Every layer kind is ported; what is not yet is forward_train over
-    RWKV-6 layers (ROADMAP A10), which refuses by name."""
+    """Every layer kind is ported, and since ROADMAP A10 forward_train runs
+    over RWKV-6 layers too: nothing is left to refuse."""
     cfg = get_config("llama31_8b", smoke=True)
     tm.Transformer(cfg.replace(kv_lora_rank=64), "meta")
     tm.init_state(cfg.replace(block_pattern=(LayerSpec(mixer="mamba"),),
                               mamba=MambaConfig()), 1, 8, "meta")
     rwkv = get_config("rwkv6_3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tm.forward_train(rwkv, tm.abstract_params(rwkv), [[1, 2, 3]])
+    model = tm.init_params(rwkv, torch.Generator().manual_seed(0), "cpu")
+    logits, _ = tm.forward_train(rwkv, model, [[1, 2, 3]])
+    assert logits.shape == (1, 3, rwkv.vocab_size)
+    assert bool(torch.isfinite(logits).all())

@@ -21,8 +21,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
-#: the control plane, both simulators and the flight recorder, copied
-#: from the reference package: each file's text is the reference's with
+#: the control plane, both simulators, the flight recorder and the
+#: training data pipeline, copied from the reference package (the last
+#: one verbatim, numpy only): each file's text is the reference's with
 #: every ``repro`` token read as ``repro_torch``, but for these comment
 #: lines, reworded in the port so that they name no change number.
 COPIED = [f"core/{n}.py" for n in (
@@ -32,7 +33,8 @@ COPIED = [f"core/{n}.py" for n in (
         "__init__", "cluster", "events", "faults", "instances", "kvcache",
         "runner", "traces")] \
     + [f"obs/{n}.py" for n in (
-        "__init__", "__main__", "explain", "export", "metrics", "recorder")]
+        "__init__", "__main__", "explain", "export", "metrics", "recorder")] \
+    + ["training/data.py"]
 REWORDED = {
     "core/router.py": [(
         "never-burst before PR 2)\n",

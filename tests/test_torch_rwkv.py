@@ -201,14 +201,17 @@ def test_init_params_is_seeded_with_the_reference_tags():
 
 
 def test_unported_layers_still_name_a_later_slice():
-    """Mamba and MoE layers are ported now (they build beside RWKV-6's);
-    what is not is forward_train over RWKV-6 layers (ROADMAP A10)."""
+    """Mamba and MoE layers are ported (they build beside RWKV-6's), and
+    since ROADMAP A10 so is forward_train over RWKV-6 layers: an RWKV-6
+    time-mix with an MoE FFN trains forward, with its aux loss."""
     cfg = get_config(ARCH, smoke=True).replace(
         mamba=MambaConfig(), moe=MoEConfig(num_experts=4, top_k=2,
                                            d_ff_expert=64))
     for spec in (LayerSpec("mamba", "dense"), LayerSpec("rwkv", "moe")):
         model = tm.Transformer(cfg.replace(block_pattern=(spec,)), "meta")
         assert model.layers[0].spec == spec
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tm.forward_train(cfg.replace(block_pattern=(spec,)), model,
-                         np.zeros((1, 4), np.int32))
+    cfg = cfg.replace(block_pattern=(spec,))
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits, aux = tm.forward_train(cfg, model, np.ones((1, 4), np.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
