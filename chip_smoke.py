@@ -138,6 +138,29 @@ Phases (any failure exits non-zero; nothing is skipped):
                optimizer, other; the idle share; model FLOPs over the
                wall against 989 TFLOP/s); its launches are printed on
                their own line, not in the kernels line
+ 13. ep      — the expert-parallel MoE path over torch.distributed: 4
+               ranks started with torch.multiprocessing (spawn, a
+               FileStore) share the card, gloo between them (NCCL refuses
+               two ranks on one device); each builds only its shard of
+               every leaf (seed 0, the whole model's values).  DeepSeek-
+               V2-Lite at its published widths and depth, one 8-layer
+               period of Jamba v0.1 at its published widths (32 layers do
+               not fit: 51.6 B parameters), both bf16, and DeepSeek-V2-
+               Lite's first 8 layers in f32: (a) at capacity factor 100
+               (no pair dropped, checked) a prefill of 4 prompts under
+               mesh ("data", "model") = (1, 4), then 4 teacher-forced
+               decode steps under (2, 2), weight-stationary (the model
+               rebuilt with expert d_ff over "data", the prefill's state
+               cut to each rank's rows); every rank's logits against the
+               single-process dense path's, computed before the ranks
+               start: bf16 by phase 3's rule, or where the dense path
+               against itself (its experts in f32) is outside that rule
+               too, finite; f32 within 1e-3, argmax equal; (b) the
+               prefill at the config's own capacity factor, 1.25: the
+               share of (token, k) pairs dropped, finite logits; Jamba's
+               attention kernels launch in every rank (printed, not in the
+               kernels line); each rank's peak GiB and walls, the phase's
+               wall
 
 Phases run in this order, one after another; each frees its model before
 the next, and each one's wall time is printed as "[phase] name: s".
@@ -155,6 +178,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2561,6 +2585,323 @@ def phase_train(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the expert-parallel MoE path over torch.distributed
+# ---------------------------------------------------------------------------
+
+EP_RANKS = 4
+EP_MESHES = {"prefill": (1, 4), "decode": (2, 2)}    # ("data", "model")
+EP_LENGTHS = [256, 201, 97, 230]       # the prompts, padded to 256
+EP_STEPS = 4                           # decode steps, teacher-forced
+EP_MAX_LEN = 272
+EP_NO_DROP_CF = 100.0                  # (a): no (token, k) pair dropped
+#: (arch, layers or 0 for all, dtype): DeepSeek-V2-Lite whole; Jamba v0.1
+#: cut to one period of its 8-layer block (4 MoE layers of 16 experts, 1
+#: attention layer); DeepSeek-V2-Lite's first 8 layers in f32, where the
+#: EP path must meet the dense path within 1e-3 (f32 at full depth, 19.6
+#: GB a rank, does not fit four ranks on the card)
+EP_MODELS = [("deepseek_v2_lite_16b", 0, "bfloat16"),
+             ("jamba_v0_1_52b", 8, "bfloat16"),
+             ("deepseek_v2_lite_16b", 8, "float32")]
+#: the dense path with its experts in f32: the same function in another
+#: rounding, the dense path's own spread in bf16
+MOE_F32 = ("_moe_dense_path", lambda f: lambda cfg, p, h, top_p, top_i: f(
+    cfg, SimpleNamespace(we_gate=p.we_gate.float(), we_up=p.we_up.float(),
+                         we_down=p.we_down.float()),
+    h.float(), top_p, top_i).to(h.dtype))
+
+
+def ep_config(arch, layers, dtype, cf=EP_NO_DROP_CF):
+    """The published config, cut to `layers` if given, in `dtype`, at
+    capacity factor `cf` (None: the config's own)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    if cf is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=cf))
+    return cfg.replace(dtype=dtype, param_dtype=dtype)
+
+
+def ep_name(arch, layers, dtype):
+    return f"{arch}{f' ({layers} layers)' if layers else ''}, {dtype}"
+
+
+def ep_inputs(cfg):
+    """The prompts (B, 256) and the teacher-forced decode tokens (steps,
+    B), from a seed."""
+    rng = np.random.RandomState(13)
+    toks = np.zeros((len(EP_LENGTHS), max(EP_LENGTHS)), np.int64)
+    for b, L in enumerate(EP_LENGTHS):
+        toks[b, :L] = rng.randint(0, cfg.vocab_size, L)
+    return toks, rng.randint(0, cfg.vocab_size, (EP_STEPS, len(EP_LENGTHS)))
+
+
+def ep_decode(cfg, model, state, rows):
+    """The teacher-forced decode steps of the prompts' `rows`: each step's
+    logits on the host."""
+    from repro_torch.models import decode_step
+    steps = ep_inputs(cfg)[1]
+    cur = np.array(EP_LENGTHS)[rows]
+    out = []
+    for t in range(EP_STEPS):
+        logits, state = decode_step(cfg, model, state, steps[t][rows],
+                                    cur + t)
+        out.append(logits.float().cpu())
+    return out
+
+
+def ep_prefill(cfg, model):
+    """The prompts' prefill: (logits on the host, state)."""
+    from repro_torch.models import init_state, prefill
+    logits, state = prefill(cfg, model, init_state(
+        cfg, len(EP_LENGTHS), EP_MAX_LEN, "cuda"), ep_inputs(cfg)[0],
+        EP_LENGTHS)
+    return logits.float().cpu(), state
+
+
+def ep_dense_reference(arch, layers, dtype):
+    """The single-process dense path on the same weights (seed 0), whole
+    on the card: its logits, and in bf16 its logits with the experts in
+    f32 (``MOE_F32``)."""
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models import ops as mops
+    cfg = ep_config(arch, layers, dtype)
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+
+    def run():
+        logits, state = ep_prefill(cfg, model)
+        return [logits] + ep_decode(cfg, model, state, slice(None))
+    out = {"logits": run()}
+    if dtype == "bfloat16":
+        attr, stand_in = MOE_F32
+        orig = getattr(mops, attr)
+        setattr(mops, attr, stand_in(orig))
+        try:
+            out["f32_experts"] = run()
+        finally:
+            setattr(mops, attr, orig)
+    log(f"[ep] dense {ep_name(arch, layers, dtype)}: "
+        f"{count_params(model) / 1e9:.2f}B params, whole on the card, "
+        f"{time.perf_counter() - t:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_local_experts(model):
+    """The shape of this rank's shard of the first MoE layer's we_gate."""
+    return tuple(next(layer.we_gate.shape for layer in model.layers
+                      if layer.spec.ffn == "moe"))
+
+
+def _ep_rank(rank, tmpdir, backend):
+    """One EP rank on the shared card, for each of EP_MODELS: (a) the
+    prefill under mesh (1, 4) at capacity factor 100, then the decode
+    steps under (2, 2), the model rebuilt for the weight-stationary layout
+    and the prefill's state cut to this rank's rows; (b) the prefill at
+    the config's own capacity factor.  Saves what it saw."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import act_rules, port_rules
+    from repro_torch.models import init_params
+    from repro_torch.models import ops as mops
+    from repro_torch.models.params import shard_state
+    from repro_torch.sharding import axis_rules
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, store=dist.FileStore(f"{tmpdir}/store", EP_RANKS),
+        rank=rank, world_size=EP_RANKS,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        B = len(EP_LENGTHS)
+        meshes = {k: init_device_mesh("cuda", v, mesh_dim_names=(
+            "data", "model")) for k, v in EP_MESHES.items()}
+        rules = {k: port_rules(act_rules(InputShape(
+            k, EP_MAX_LEN, B, k), multi_pod=False)) for k in EP_MESHES}
+        res = []
+        for arch, layers, dtype in EP_MODELS:
+            torch.cuda.reset_peak_memory_stats()
+            kops.reset_launches()
+            mops.reset_ep_pairs()
+            cfg = ep_config(arch, layers, dtype)
+            gen = torch.Generator(device="cuda")
+            r = {"walls": {}}
+            t0 = time.perf_counter()
+
+            def build(kind):
+                t = time.perf_counter()
+                mesh, rl = meshes[kind], rules[kind]
+                model = init_params(cfg, gen.manual_seed(0), "cuda", mesh,
+                                    rl)
+                torch.cuda.synchronize()
+                r["walls"][f"build_{kind}"] = time.perf_counter() - t
+                r[f"experts_{kind}"] = ep_local_experts(model)
+                return model, mesh, rl
+
+            model, mesh, rl = build("prefill")
+            t = time.perf_counter()
+            with axis_rules(rl, mesh):
+                logits, state = ep_prefill(cfg, model)
+            r["logits"] = [logits]
+            r["walls"]["prefill"] = time.perf_counter() - t
+            r["pairs_prefill"] = [int(mops.EP_PAIRS[k]) for k in
+                                  ("routed", "dropped")]
+            del model
+            torch.cuda.empty_cache()
+            # the decode layout: experts over "model", their d_ff over
+            # "data"; this rank's rows of the prefill's state
+            model, mesh, rl = build("decode")
+            state = shard_state(cfg, state, mesh, rl)
+            d, n = mesh.get_coordinate()[0], EP_MESHES["decode"][0]
+            r["rows"] = (d * B // n, (d + 1) * B // n)
+            t = time.perf_counter()
+            mops.reset_ep_pairs()
+            with axis_rules(rl, mesh):
+                r["logits"] += ep_decode(cfg, model, state,
+                                         slice(*r["rows"]))
+            r["walls"]["decode"] = time.perf_counter() - t
+            del model, state
+            r["pairs_decode"] = [int(mops.EP_PAIRS[k]) for k in
+                                 ("routed", "dropped")]
+            r["launches"] = dict(kops.LAUNCHES)
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.empty_cache()
+            # (b) the config's own capacity factor, in the prefill layout
+            model, mesh, rl = build("prefill")
+            t = time.perf_counter()
+            mops.reset_ep_pairs()
+            with axis_rules(rl, mesh):
+                r["prefill_b"], _ = ep_prefill(
+                    ep_config(arch, layers, dtype, None), model)
+            r["pairs_b"] = [int(mops.EP_PAIRS[k]) for k in
+                            ("routed", "dropped")]
+            r["walls"]["prefill_b"] = time.perf_counter() - t
+            r["wall"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+            res.append(r)
+        torch.save(res, f"{tmpdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_rows(logits_by_rank, ref):
+    """Every rank's rows and the dense path's same rows, stacked: (the
+    prefill's, the decode steps')."""
+    pre = [torch.cat([r["logits"][0] for r in logits_by_rank]),
+           torch.cat([ref[0]] * len(logits_by_rank))]
+    dec = [torch.cat([x for r in logits_by_rank for x in r["logits"][1:]]),
+           torch.cat([w[slice(*r["rows"])] for r in logits_by_rank
+                      for w in ref[1:]])]
+    return pre, dec
+
+
+def ep_compare(got, want, name, what):
+    """(largest |diff| over the largest |want|, rows whose argmax agree,
+    rows, finite), logged."""
+    share = ((got - want).abs().max() / want.abs().max()).item()
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    finite = bool(torch.isfinite(got).all())
+    log(f"[ep] {name}: {what}: max abs diff / max |logit| {share:.4g}, "
+        f"argmax equal in {same} of {got.shape[0]} rows, finite {finite}")
+    return share, same, got.shape[0], finite
+
+
+def phase_ep():
+    """The expert-parallel MoE path (``models.ops._moe_ep_path``) over 4
+    ranks that share the one card, gloo between them (NCCL refuses two
+    ranks on one device).  This phase holds the path's results, not its
+    speed: 4 ranks on one card are no EP deployment."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    backend = "gloo"
+    t0 = time.perf_counter()
+    refs = [ep_dense_reference(*m) for m in EP_MODELS]
+    log(f"[ep] dense references in {time.perf_counter() - t0:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        try:
+            tmp.start_processes(_ep_rank, args=(tmpdir, backend),
+                                nprocs=EP_RANKS, join=True,
+                                start_method="spawn")
+        except tmp.ProcessException as e:
+            raise PhaseFailed(f"ep: a rank failed: {e}")
+        ranks = [torch.load(f"{tmpdir}/rank{r}.pt")
+                 for r in range(EP_RANKS)]
+    log(f"[ep] backend {backend}, {EP_RANKS} ranks on one card, meshes "
+        f"(data, model): prefill {EP_MESHES['prefill']}, decode "
+        f"{EP_MESHES['decode']}; the ranks' wall "
+        f"{time.perf_counter() - t:.1f} s (4 ranks sharing one card: not an "
+        f"EP speed)")
+    for i, (arch, layers, dtype) in enumerate(EP_MODELS):
+        cfg = ep_config(arch, layers, dtype)
+        name = ep_name(arch, layers, dtype)
+        rs = [r[i] for r in ranks]
+        log(f"[ep] {name}: a rank's we_gate shard: prefill "
+            f"{rs[0]['experts_prefill']}, decode {rs[0]['experts_decode']}; "
+            f"peak GiB by rank {[round(r['peak_gib'], 2) for r in rs]}")
+        for k, r in enumerate(rs):
+            log(f"[ep] {name}: rank {k} walls (s) "
+                f"{ {w: round(v, 2) for w, v in r['walls'].items()} }, "
+                f"{r['wall']:.1f} in all")
+        n_moe = sum(spec.ffn == "moe" for spec in cfg.layer_specs)
+        routed, dropped = (sum(r["pairs_prefill"][j] for r in rs)
+                           for j in (0, 1))
+        dec = [sum(r["pairs_decode"][j] for r in rs) for j in (0, 1)]
+        log(f"[ep] {name}: (a) capacity factor {EP_NO_DROP_CF}: prefill "
+            f"{dropped} of {routed} pairs dropped, decode {dec[1]} of "
+            f"{dec[0]}")
+        check(dropped == dec[1] == 0 and routed == len(EP_LENGTHS)
+              * max(EP_LENGTHS) * cfg.moe.top_k * n_moe,
+              f"{name}: (a) pairs dropped or lost")
+        pre, dec = ep_rows(rs, refs[i]["logits"])
+        errs = [ep_compare(*pre, name, "(a) prefill, EP vs dense"),
+                ep_compare(*dec, name, f"(a) {EP_STEPS} decode steps, EP vs "
+                           "dense")]
+        share = max(e[0] for e in errs)
+        agree = all(e[1] == e[2] and e[3] for e in errs)
+        if dtype == "float32":
+            check(agree and share <= 1e-3,
+                  f"{name}: f32 EP logits not within 1e-3 of the dense path")
+        else:
+            own = ep_compare(torch.cat(refs[i]["f32_experts"]),
+                             torch.cat(refs[i]["logits"]), name,
+                             "the dense path with its experts in f32 vs bf16")
+            rule = agree and share <= 0.05
+            log(f"[ep] {name}: phase 3's rule (0.05, same argmax) "
+                f"{'holds' if rule else 'fails'} for EP vs dense; the dense "
+                f"path against itself is "
+                f"{'outside' if own[0] > 0.05 else 'within'} it")
+            check(rule or (own[0] > 0.05 and all(e[3] for e in errs)),
+                  f"{name}: EP logits outside phase 3's rule")
+        routed, dropped = (sum(r["pairs_b"][j] for r in rs) for j in (0, 1))
+        finite = all(torch.isfinite(r["prefill_b"]).all() for r in rs)
+        log(f"[ep] {name}: (b) capacity factor "
+            f"{ep_config(arch, layers, dtype, None).moe.capacity_factor}: "
+            f"{dropped} of {routed} prefill (token, k) pairs dropped, share "
+            f"{dropped / routed:.4f}; logits finite {finite}")
+        check(finite, f"{name}: (b) logits not finite")
+        launches = [r["launches"] for r in rs]
+        log(f"[ep] {name}: attention kernel launches by rank "
+            f"{[{k: v for k, v in n.items() if v} for n in launches]}")
+        if not cfg.kv_lora_rank:
+            check(all(n["chunked_prefill_attention"] > 0
+                      and n["decode_attention"] > 0 for n in launches),
+                  f"{name}: the attention kernels did not launch under EP")
+    log(f"[ep] phase wall {time.perf_counter() - t0:.1f} s (4 ranks sharing "
+        f"one card: not an EP speed)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2592,6 +2933,7 @@ def main() -> int:
     timed(phase_vision)
     timed(phase_control, figures, card)
     timed(phase_train, card)
+    timed(phase_ep)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),

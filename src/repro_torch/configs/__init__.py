@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ARCH_IDS, LayerSpec, MambaConfig, ModelConfig, MoEConfig, canonical_id,
-    get_config,
+    ARCH_IDS, INPUT_SHAPES, InputShape, LayerSpec, MambaConfig, ModelConfig,
+    MoEConfig, all_configs, canonical_id, get_config, input_specs,
+    long_context_variant,
 )

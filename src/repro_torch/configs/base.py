@@ -1,5 +1,7 @@
-"""Model configuration: the dataclasses of the reference package's
-``repro/configs/base.py``, copied so the port needs no JAX.
+"""Model configuration: the dataclasses, input shapes and registry of the
+reference package's ``repro/configs/base.py``, copied so the port needs no
+JAX; ``input_specs`` gives ``meta`` tensors where the reference gives
+ShapeDtypeStructs.
 
 Each supported architecture has a module ``repro_torch/configs/<id>.py``
 exporting ``CONFIG`` (the published geometry, cited) and ``SMOKE`` (a
@@ -191,6 +193,50 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (the dry-run's)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def long_context_variant(cfg: ModelConfig) -> Optional[ModelConfig]:
+    """Sub-quadratic variant used for long_500k, or None if the arch must
+    skip that shape (pure full-attention)."""
+    if cfg.is_subquadratic:
+        return cfg
+    specs = cfg.layer_specs
+    n_attn = sum(s.mixer == "attn" for s in specs)
+    n_local = sum(s.mixer == "local_attn" for s in specs)
+    n_ssm = sum(s.mixer in ("mamba", "rwkv") for s in specs)
+    if n_ssm and n_attn <= len(specs) // 4:
+        # jamba-style hybrid: the minority attention layers run with a
+        # context-parallel (sequence-sharded) cache; the SSM majority keeps
+        # O(1) state — run the shape as-is.
+        return cfg
+    if n_local and n_attn:
+        # gemma2-style alternating: long-decode config runs every attention
+        # layer with the sliding window.
+        pat = tuple(
+            LayerSpec("local_attn" if s.mixer == "attn" else s.mixer, s.ffn)
+            for s in cfg.block_pattern)
+        return cfg.replace(block_pattern=pat, name=cfg.name + "-swa")
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -221,3 +267,37 @@ def canonical_id(arch: str) -> str:
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical_id(arch)}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_configs(smoke: bool = False) -> dict[str, ModelConfig]:
+    return {a: get_config(a, smoke) for a in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# input_specs(): abstract inputs per (config, shape)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """``meta`` tensors (shape and dtype, no memory) for every model input.
+
+    train  -> {tokens, labels [, image_embeds]}
+    prefill-> {tokens, lengths [, image_embeds]}
+    decode -> {last_tokens, cur_lens} (+ state built separately)
+    """
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        out = {"tokens": meta(B, S), "labels": meta(B, S)}
+    elif shape.kind == "prefill":
+        out = {"tokens": meta(B, S), "lengths": meta(B)}
+    else:  # decode: one new token against a cache of S
+        out = {"last_tokens": meta(B), "cur_lens": meta(B)}
+    if cfg.num_vision_tokens and shape.kind != "decode":
+        out["image_embeds"] = meta(B, cfg.num_vision_tokens, cfg.d_model,
+                                   dtype=torch.bfloat16)
+    return out

@@ -11,7 +11,9 @@ With ``ApplyCtx.plain_kernels`` they run the masked ``_sdpa`` and
 ``rwkv_wkv_chunked`` instead, which is how the reference computes by
 default and what the kernel path is compared with.  MLA, cross-attention,
 MoE and Mamba have no kernel in the reference either: they are plain
-torch ops on every device.  Train mode (``forward_train``) has no state:
+torch ops on every device.  Under ``sharding.axis_rules(rules, mesh)``
+with "experts" on the mesh, ``apply_moe_ffn`` takes the reference's
+expert-parallel path over ``torch.distributed`` (``_moe_ep_path``).  Train mode (``forward_train``) has no state:
 attention runs over the sequence's own keys, through the prefill kernel
 at offset 0, and the recurrent layers start from zero.  An int8 KV cache
 is quantised on write (``_quant_kv``) and dequantised to the activation
@@ -26,12 +28,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.params import _RWKV_LORA  # lora width shared with decls
+from repro_torch.sharding import (axes_size, axis_group, current_mesh,
+                                  current_rules, shard_index)
 
 NEG_INF = -2.0 ** 30
 
@@ -312,10 +317,25 @@ def apply_dense_ffn(cfg: ModelConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: the reference's dense path (every expert computed on
-# every token, combined by the routing gates), which is what it runs on one
-# device; its expert-parallel path is the sharded one (ROADMAP A11).
+# Mixture of Experts
+#   * dense path: every expert computed on every token, combined by the
+#     routing gates (one device, or no mesh active)
+#   * expert-parallel path: under ``sharding.axis_rules(rules, mesh)`` with
+#     "experts" on mesh axes, each rank runs its own experts on the
+#     (token, k) pairs routed to them, capacity-bounded (GShard-style
+#     dropping), and the partial outputs are summed over the ranks
 # ---------------------------------------------------------------------------
+
+#: (token, k) pairs routed to this rank's experts by the expert-parallel
+#: path, and those of them dropped past an expert's capacity: device
+#: scalars (or 0), summed over calls until ``reset_ep_pairs``
+EP_PAIRS = {"routed": 0, "dropped": 0}
+
+
+def reset_ep_pairs():
+    for name in EP_PAIRS:
+        EP_PAIRS[name] = 0
+
 
 def _router(cfg: ModelConfig, p, h):
     """Softmax router, top-k renormalised, and the Switch load-balance aux
@@ -333,6 +353,13 @@ def _router(cfg: ModelConfig, p, h):
     ce = ce / max(flat.shape[0] * m.top_k, 1)
     aux = m.router_aux_coef * m.num_experts * (me * ce).sum()
     return top_p, top_i, aux
+
+
+def _expert_ffn(cfg: ModelConfig, we_gate, we_up, we_down, xe):
+    """xe: (E, C, d) -> (E, C, d)."""
+    g = _act(torch.matmul(xe, we_gate), cfg.act)
+    u = torch.matmul(xe, we_up)
+    return torch.matmul(g * u, we_down)
 
 
 def _moe_dense_path(cfg: ModelConfig, p, h, top_p, top_i):
@@ -353,12 +380,176 @@ def _moe_dense_path(cfg: ModelConfig, p, h, top_p, top_i):
     return y.reshape(B, S, d)
 
 
+def _all_reduce(x, group):
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Enter(torch.autograd.Function):
+    """Where replicated tokens enter the expert group: identity forward,
+    the group's sum of the partial gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Leave(torch.autograd.Function):
+    """Where the partial outputs leave it: summed over the group forward,
+    identity backward (every rank holds the same output gradient)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return _all_reduce(y.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AuxMean(torch.autograd.Function):
+    """The mean of the ranks' aux losses over `group` (N ranks) forward;
+    backward each rank's share of a mean over the n_batch batch shards
+    (the EP ranks of one shard hold the same aux)."""
+
+    @staticmethod
+    def forward(ctx, aux, group, n, n_batch):
+        ctx.n_batch = n_batch
+        return _all_reduce(aux.clone(), group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n_batch, None, None, None
+
+
+def _dispatch_combine(cfg: ModelConfig, p, x, top_p, top_i, lo: int):
+    """The reference's ``local_moe`` for this rank's experts [lo, lo +
+    E_local): x (T, d) tokens; top_p / top_i (T, k).  Each (token, k) pair
+    routed here takes the next slot of its expert (an exclusive cumsum over
+    the pairs in token-major order); past cap = max(8, T k / E x capacity
+    factor) it is dropped: it adds zero, and its output is read at slot
+    min(pos, cap - 1) with weight 0.  Returns this rank's partial (T, d)."""
+    m = cfg.moe
+    T, d = x.shape
+    e_local = p.we_gate.shape[0]
+    cap = int(max(8, T * m.top_k / m.num_experts * m.capacity_factor))
+    flat_e = top_i.reshape(-1) - lo                      # (T*k,)
+    local = (flat_e >= 0) & (flat_e < e_local)
+    flat_e = torch.where(local, flat_e, 0)
+    onehot = F.one_hot(flat_e, e_local) * local[:, None]  # (T*k, El)
+    pos = onehot.cumsum(0) - onehot                      # pos within expert
+    pos_e = (pos * onehot).sum(-1)                       # (T*k,)
+    keep = local & (pos_e < cap)
+    EP_PAIRS["routed"] = EP_PAIRS["routed"] + local.sum()
+    EP_PAIRS["dropped"] = EP_PAIRS["dropped"] + (local & ~keep).sum()
+    tok = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
+    slot = torch.where(keep, pos_e, cap - 1)
+    buf = torch.zeros((e_local, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((torch.where(keep, flat_e, 0), slot),
+                        x[tok] * keep[:, None].to(x.dtype), accumulate=True)
+    y_e = _expert_ffn(cfg, p.we_gate, p.we_up, p.we_down, buf)
+    y_pairs = y_e[flat_e, torch.clamp(pos_e, max=cap - 1)]  # (T*k, d)
+    w = (top_p.reshape(-1) * keep).to(x.dtype)
+    return (y_pairs * w[:, None]).reshape(T, m.top_k, d).sum(1)
+
+
+def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
+    """Expert-parallel MoE on this rank's shards, the reference's layouts:
+
+    * S > 1 (train/prefill): h is this rank's shard of the batch over the
+      rules' "batch" axes, the same on every rank of the EP group; each
+      rank holds its E / n_ep experts whole.  Tokens and routing weights
+      enter the group (``_Enter``) and the partial outputs leave it summed
+      (``_Leave``): the gradients match the dense path's once every leaf's
+      gradient is summed over the batch axes.
+    * S == 1 (decode): weight-stationary.  Expert d_ff is split over the
+      rules' "expert_ff" axes too, the batch's shards are gathered to
+      every rank, and the partial outputs are summed over the EP + ff
+      axes; each rank keeps its own rows.  Forward only.
+
+    Each rank's expert slice [rank E_local, (rank + 1) E_local) and d_ff
+    slice are those of ``sharding.local_slices`` under the same rules:
+    the model is built by ``init_params(..., mesh, rules)``.  The aux loss
+    is the mean of the per-shard Switch losses over the EP + ff + batch
+    axes.  Returns (y (B, S, d), aux)."""
+    m = cfg.moe
+    rules = current_rules() or {}
+    names = mesh.mesh_dim_names
+    B, S, d = h.shape
+    stationary = S == 1
+    batch_axes = tuple(a for a in rules.get("batch", ())
+                       if a in names and a not in ep_axes)
+    ff_axes = tuple(a for a in rules.get("expert_ff", ())
+                    if a in names and a not in ep_axes) \
+        if stationary else ()
+    if ff_axes and m.d_ff_expert % axes_size(mesh, ff_axes) != 0:
+        ff_axes = ()
+    n_ep = axes_size(mesh, ep_axes)
+    e_local = m.num_experts // n_ep
+    want = (e_local, d, m.d_ff_expert // axes_size(mesh, ff_axes))
+    if tuple(p.we_gate.shape) != want:
+        raise ValueError(
+            f"{cfg.name}: local experts {tuple(p.we_gate.shape)}, but the "
+            f"rules' {'decode' if stationary else 'token'} layout needs "
+            f"{want}: build the model under the same (mesh, rules)")
+    ep_rank, _ = shard_index(ep_axes, mesh)
+    lo = ep_rank * e_local
+    group = axis_group(mesh, ep_axes + ff_axes)
+    if not stationary:
+        top_p, top_i, aux = _router(cfg, p, h)
+        x = _Enter.apply(h.reshape(B * S, d), group)
+        top_p = _Enter.apply(top_p.reshape(B * S, m.top_k), group)
+        y = _dispatch_combine(cfg, p, x, top_p, top_i.reshape(-1, m.top_k),
+                              lo)
+        y = _Leave.apply(y, group).reshape(B, S, d)
+        n_batch = axes_size(mesh, batch_axes)
+        aux = _AuxMean.apply(aux, axis_group(mesh, ep_axes + batch_axes),
+                             n_ep * n_batch, n_batch)
+        return y, aux
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise NotImplementedError(
+            "the weight-stationary (S == 1) expert-parallel path has no "
+            "backward")
+    # gather the batch: each rank's rows at its shard's offset, summed
+    # (decode batches are small); then back to its own rows at the end
+    if batch_axes:
+        row, n = shard_index(batch_axes, mesh)
+        full = h.new_zeros((n * B, d))
+        full[row * B:(row + 1) * B] = h[:, 0]
+        hf = _all_reduce(full, axis_group(mesh, batch_axes))
+    else:
+        row, hf = 0, h[:, 0]
+    top_p, top_i, aux = _router(cfg, p, hf)
+    y = _all_reduce(_dispatch_combine(cfg, p, hf, top_p, top_i, lo), group)
+    aux = _all_reduce(aux, group) / axes_size(mesh, ep_axes + ff_axes)
+    return y[row * B:(row + 1) * B, None], aux
+
+
 def apply_moe_ffn(cfg: ModelConfig, p, x):
-    """Routed experts plus the shared ones.  Returns (out, aux)."""
+    """Routed experts plus the shared ones.  Returns (out, aux).  Takes the
+    expert-parallel path exactly where the reference does: a mesh is
+    active, "experts" maps to its axes of size > 1, and E divides by it."""
+    m = cfg.moe
     h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
-    top_p, top_i, aux = _router(cfg, p, h)
-    y = _moe_dense_path(cfg, p, h, top_p, top_i)
-    if cfg.moe.num_shared:
+    mesh = current_mesh()
+    rules = current_rules() or {}
+    ep_axes = tuple(a for a in rules.get("experts", ())
+                    if mesh is not None and a in mesh.mesh_dim_names)
+    use_ep = (mesh is not None and ep_axes
+              and m.num_experts % axes_size(mesh, ep_axes) == 0
+              and axes_size(mesh, ep_axes) > 1)
+    if use_ep:
+        y, aux = _moe_ep_path(cfg, p, h, mesh, ep_axes)
+    else:
+        top_p, top_i, aux = _router(cfg, p, h)
+        y = _moe_dense_path(cfg, p, h, top_p, top_i)
+    if m.num_shared:
         y = y + (_act(h @ p.ws_gate, cfg.act) * (h @ p.ws_up)) @ p.ws_down
     if cfg.post_norms:
         y = rmsnorm(y, p.ln2_post, cfg.norm_plus_one)

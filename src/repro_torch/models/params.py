@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.sharding import local_shard, local_slices, logical_to_pspec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}
@@ -40,8 +41,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclass(frozen=True)
 class Leaf:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical axes (``sharding``), per dim
     init: str = "fanin"  # fanin|zeros|ones|embed|const:<v>|alog|decay
     dtype: Optional[str] = None  # None -> cfg.param_dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} with axes {self.axes}")
 
 
 def _attn_leaves(cfg: ModelConfig, cross: bool = False) -> dict[str, Leaf]:
@@ -51,61 +57,66 @@ def _attn_leaves(cfg: ModelConfig, cross: bool = False) -> dict[str, Leaf]:
     init, so the layer starts silent) and q / k norms."""
     d, dh = cfg.d_model, cfg.head_dim_
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    t = {"ln1": Leaf((d,), "ones")}
+    t = {"ln1": Leaf((d,), (None,), "ones")}
     if cfg.kv_lora_rank and not cross:
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-        t["wq"] = Leaf((d, nq * qk))
-        t["w_dkv"] = Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_dim))
-        t["kv_norm"] = Leaf((cfg.kv_lora_rank,), "ones")
-        t["w_uk"] = Leaf((cfg.kv_lora_rank, nq * cfg.qk_nope_dim))
-        t["w_uv"] = Leaf((cfg.kv_lora_rank, nq * cfg.v_head_dim))
-        t["wo"] = Leaf((nq * cfg.v_head_dim, d))
+        t["wq"] = Leaf((d, nq * qk), ("embed", "heads"))
+        t["w_dkv"] = Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                          ("embed", "kv_lora"))
+        t["kv_norm"] = Leaf((cfg.kv_lora_rank,), ("kv_lora",), "ones")
+        t["w_uk"] = Leaf((cfg.kv_lora_rank, nq * cfg.qk_nope_dim),
+                         ("kv_lora", "heads"))
+        t["w_uv"] = Leaf((cfg.kv_lora_rank, nq * cfg.v_head_dim),
+                         ("kv_lora", "heads"))
+        t["wo"] = Leaf((nq * cfg.v_head_dim, d), ("heads", "embed"))
     else:
-        t["wq"] = Leaf((d, nq * dh))
-        t["wk"] = Leaf((d, nkv * dh))
-        t["wv"] = Leaf((d, nkv * dh))
-        t["wo"] = Leaf((nq * dh, d))
+        t["wq"] = Leaf((d, nq * dh), ("embed", "heads"))
+        t["wk"] = Leaf((d, nkv * dh), ("embed", "kv_heads"))
+        t["wv"] = Leaf((d, nkv * dh), ("embed", "kv_heads"))
+        t["wo"] = Leaf((nq * dh, d), ("heads", "embed"))
         if cfg.qkv_bias:
-            t["bq"] = Leaf((nq * dh,), "zeros")
-            t["bk"] = Leaf((nkv * dh,), "zeros")
-            t["bv"] = Leaf((nkv * dh,), "zeros")
+            t["bq"] = Leaf((nq * dh,), ("heads",), "zeros")
+            t["bk"] = Leaf((nkv * dh,), ("kv_heads",), "zeros")
+            t["bv"] = Leaf((nkv * dh,), ("kv_heads",), "zeros")
     if cross:
-        t["gate"] = Leaf((), "zeros")
-        t["q_norm"] = Leaf((dh,), "ones")
-        t["k_norm"] = Leaf((dh,), "ones")
+        t["gate"] = Leaf((), (), "zeros")
+        t["q_norm"] = Leaf((dh,), (None,), "ones")
+        t["k_norm"] = Leaf((dh,), (None,), "ones")
     if cfg.post_norms:
-        t["ln1_post"] = Leaf((d,), "ones")
+        t["ln1_post"] = Leaf((d,), (None,), "ones")
     return t
 
 
 def _dense_ffn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     d, f = cfg.d_model, cfg.d_ff
-    t = {"ln2": Leaf((d,), "ones"),
-         "w_gate": Leaf((d, f)),
-         "w_up": Leaf((d, f)),
-         "w_down": Leaf((f, d))}
+    t = {"ln2": Leaf((d,), (None,), "ones"),
+         "w_gate": Leaf((d, f), ("embed", "ff")),
+         "w_up": Leaf((d, f), ("embed", "ff")),
+         "w_down": Leaf((f, d), ("ff", "embed"))}
     if cfg.post_norms:
-        t["ln2_post"] = Leaf((d,), "ones")
+        t["ln2_post"] = Leaf((d,), (None,), "ones")
     return t
 
 
 def _moe_ffn_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     """Router, E stacked experts (E, d, f) / (E, f, d), and the shared
-    experts as one dense FFN of num_shared * f."""
+    experts as one dense FFN of num_shared * f.  The experts split over
+    "experts" and, for the weight-stationary decode, their d_ff over
+    "expert_ff" (not d_model)."""
     d, m = cfg.d_model, cfg.moe
     e, f = m.num_experts, m.d_ff_expert
-    t = {"ln2": Leaf((d,), "ones"),
-         "router": Leaf((d, e)),
-         "we_gate": Leaf((e, d, f)),
-         "we_up": Leaf((e, d, f)),
-         "we_down": Leaf((e, f, d))}
+    t = {"ln2": Leaf((d,), (None,), "ones"),
+         "router": Leaf((d, e), ("embed", None)),
+         "we_gate": Leaf((e, d, f), ("experts", None, "expert_ff")),
+         "we_up": Leaf((e, d, f), ("experts", None, "expert_ff")),
+         "we_down": Leaf((e, f, d), ("experts", "expert_ff", None))}
     if m.num_shared:
         fs = m.num_shared * f
-        t["ws_gate"] = Leaf((d, fs))
-        t["ws_up"] = Leaf((d, fs))
-        t["ws_down"] = Leaf((fs, d))
+        t["ws_gate"] = Leaf((d, fs), ("embed", "ff"))
+        t["ws_up"] = Leaf((d, fs), ("embed", "ff"))
+        t["ws_down"] = Leaf((fs, d), ("ff", "embed"))
     if cfg.post_norms:
-        t["ln2_post"] = Leaf((d,), "ones")
+        t["ln2_post"] = Leaf((d,), (None,), "ones")
     return t
 
 
@@ -115,16 +126,16 @@ def _mamba_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     d, mc = cfg.d_model, cfg.mamba
     di = mc.expand * d
     dtr = mc.dt_rank or -(-d // 16)
-    return {"ln1": Leaf((d,), "ones"),
-            "in_proj": Leaf((d, 2 * di)),
-            "conv_w": Leaf((mc.d_conv, di)),
-            "conv_b": Leaf((di,), "zeros"),
-            "x_proj": Leaf((di, dtr + 2 * mc.d_state)),
-            "dt_w": Leaf((dtr, di)),
-            "dt_b": Leaf((di,), "const:-4.6", "float32"),
-            "A_log": Leaf((di, mc.d_state), "alog", "float32"),
-            "D": Leaf((di,), "ones", "float32"),
-            "out_proj": Leaf((di, d))}
+    return {"ln1": Leaf((d,), (None,), "ones"),
+            "in_proj": Leaf((d, 2 * di), ("embed", "ff")),
+            "conv_w": Leaf((mc.d_conv, di), (None, "ff")),
+            "conv_b": Leaf((di,), ("ff",), "zeros"),
+            "x_proj": Leaf((di, dtr + 2 * mc.d_state), ("ff", None)),
+            "dt_w": Leaf((dtr, di), (None, "ff")),
+            "dt_b": Leaf((di,), ("ff",), "const:-4.6", "float32"),
+            "A_log": Leaf((di, mc.d_state), ("ff", None), "alog", "float32"),
+            "D": Leaf((di,), ("ff",), "ones", "float32"),
+            "out_proj": Leaf((di, d), ("ff", "embed"))}
 
 
 _RWKV_LORA = 32
@@ -136,30 +147,31 @@ def _rwkv_tm_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     ``lora_B`` and ``decay_B`` start at zero, so the decay starts at
     ``w0``'s (``decay`` tag: -6 .. -1 across channels)."""
     d = cfg.d_model
-    t = {"ln1": Leaf((d,), "ones")}
+    t = {"ln1": Leaf((d,), (None,), "ones")}
     for n in ("x", "w", "k", "v", "r", "g"):
-        t[f"mu_{n}"] = Leaf((d,), "const:0.5")
-    t["lora_A"] = Leaf((d, 5 * _RWKV_LORA))
-    t["lora_B"] = Leaf((5, _RWKV_LORA, d), "zeros")
-    t["w0"] = Leaf((d,), "decay", "float32")
-    t["decay_A"] = Leaf((d, _RWKV_DECAY_LORA))
-    t["decay_B"] = Leaf((_RWKV_DECAY_LORA, d), "zeros")
-    t["u"] = Leaf((d,), "const:0.5", "float32")
-    for n in ("wr", "wk", "wv", "wg", "wo"):
-        t[n] = Leaf((d, d))
-    t["lnx_g"] = Leaf((d,), "ones")
-    t["lnx_b"] = Leaf((d,), "zeros")
+        t[f"mu_{n}"] = Leaf((d,), (None,), "const:0.5")
+    t["lora_A"] = Leaf((d, 5 * _RWKV_LORA), ("embed", None))
+    t["lora_B"] = Leaf((5, _RWKV_LORA, d), (None, None, "embed"), "zeros")
+    t["w0"] = Leaf((d,), (None,), "decay", "float32")
+    t["decay_A"] = Leaf((d, _RWKV_DECAY_LORA), ("embed", None))
+    t["decay_B"] = Leaf((_RWKV_DECAY_LORA, d), (None, "embed"), "zeros")
+    t["u"] = Leaf((d,), (None,), "const:0.5", "float32")
+    for n in ("wr", "wk", "wv", "wg"):
+        t[n] = Leaf((d, d), ("embed", "heads"))
+    t["wo"] = Leaf((d, d), ("heads", "embed"))
+    t["lnx_g"] = Leaf((d,), (None,), "ones")
+    t["lnx_b"] = Leaf((d,), (None,), "zeros")
     return t
 
 
 def _rwkv_cm_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"ln2": Leaf((d,), "ones"),
-            "mu_ck": Leaf((d,), "const:0.5"),
-            "mu_cr": Leaf((d,), "const:0.5"),
-            "wk_cm": Leaf((d, f)),
-            "wv_cm": Leaf((f, d)),
-            "wr_cm": Leaf((d, d))}
+    return {"ln2": Leaf((d,), (None,), "ones"),
+            "mu_ck": Leaf((d,), (None,), "const:0.5"),
+            "mu_cr": Leaf((d,), (None,), "const:0.5"),
+            "wk_cm": Leaf((d, f), ("embed", "ff")),
+            "wv_cm": Leaf((f, d), ("ff", "embed")),
+            "wr_cm": Leaf((d, d), ("embed", None))}
 
 
 _MIXERS = {"attn": _attn_leaves, "local_attn": _attn_leaves,
@@ -199,9 +211,10 @@ class DecoderLayer(_Leaves):
 
 def _top_leaves(cfg: ModelConfig) -> dict[str, Leaf]:
     d, v = cfg.d_model, cfg.vocab_size
-    t = {"embed": Leaf((v, d), "embed"), "final_norm": Leaf((d,), "ones")}
+    t = {"embed": Leaf((v, d), ("vocab", "embed"), "embed"),
+         "final_norm": Leaf((d,), (None,), "ones")}
     if not cfg.tie_embeddings:
-        t["lm_head"] = Leaf((d, v))
+        t["lm_head"] = Leaf((d, v), ("embed", "vocab"))
     return t
 
 
@@ -227,42 +240,82 @@ def abstract_params(cfg: ModelConfig) -> Transformer:
 
 
 def _leaf_modules(model: Transformer):
-    yield model
-    yield from model.layers
+    """(None, the top-level module), then (i, layer i)."""
+    yield None, model
+    yield from enumerate(model.layers)
+
+
+def _prefix(i) -> str:
+    return "" if i is None else f"layers.{i}."
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Each parameter's logical axes, by its name in ``named_parameters``
+    ("embed", "layers.3.we_gate", ...): the reference's ``param_axes``
+    leaf by leaf (``reference_paths`` maps the names onto its tree; a
+    stacked leaf there has a leading None)."""
+    return {_prefix(i) + n: lf.axes
+            for i, mod in _leaf_modules(abstract_params(cfg))
+            for n, lf in mod.leaves.items()}
+
+
+def _leaf_values(lf: Leaf, generator, device) -> torch.Tensor:
+    """One leaf's seeded values, whole, in f32; only the fan-in and embed
+    tags draw from `generator`."""
+    shape = lf.shape
+    consts = {"zeros": 0.0, "ones": 1.0}
+    if lf.init in consts or lf.init.startswith("const:"):
+        c = consts[lf.init] if lf.init in consts else float(lf.init[6:])
+        return torch.full(shape, c, device=device)
+    if lf.init == "alog":
+        return torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                      device=device)).expand(shape)
+    if lf.init == "decay":
+        d = shape[-1]
+        ramp = torch.arange(d, dtype=torch.float32, device=device)
+        return (-6.0 + 5.0 * (ramp / max(d - 1, 1))).expand(shape)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 0.02 if lf.init == "embed" else 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+
+def _local(lf: Leaf, mesh, rules):
+    """The leaf's slices on this rank under (mesh, rules), or None (whole)
+    without a mesh."""
+    if mesh is None:
+        return None
+    return local_slices(lf.shape, logical_to_pspec(lf.axes, rules, lf.shape,
+                                                   mesh), mesh)
 
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Transformer:
+                device="cuda", mesh=None, rules=None) -> Transformer:
     """A model with seeded random weights, made on `device`: fan-in normal
     (std 1/sqrt(fan_in)), 0.02 normal for the embedding, ones, zeros,
     constants, Mamba's log(1 .. d_state) and the RWKV decay ramp as
-    tagged.  `generator` must live on `device`."""
-    model = Transformer(cfg, device)
-    for mod in _leaf_modules(model):
+    tagged.  `generator` must live on `device`.
+
+    With a DeviceMesh `mesh` and a rules table, the model holds only this
+    rank's shard of each leaf (``sharding.logical_to_pspec`` of its axes),
+    with the whole model's values: each leaf is drawn whole, cut and
+    freed, so at most one leaf is ever whole on the device."""
+    model = Transformer(cfg, device if mesh is None else "meta")
+    for _, mod in _leaf_modules(model):
         for name, lf in mod.leaves.items():
-            p = getattr(mod, name)
-            if lf.init == "zeros":
-                p.zero_()
-            elif lf.init == "ones":
-                p.fill_(1.0)
-            elif lf.init.startswith("const:"):
-                p.fill_(float(lf.init[6:]))
-            elif lf.init == "alog":
-                ds = lf.shape[-1]
-                p.copy_(torch.log(torch.arange(
-                    1, ds + 1, dtype=torch.float32, device=device)))
-            elif lf.init == "decay":
-                d = lf.shape[-1]
-                ramp = torch.arange(d, dtype=torch.float32, device=device)
-                p.copy_(-6.0 + 5.0 * (ramp / max(d - 1, 1)))
+            values = _leaf_values(lf, generator, device)
+            cut = _local(lf, mesh, rules)
+            if cut is None:
+                getattr(mod, name).copy_(values)
             else:
-                fan_in = lf.shape[-2] if len(lf.shape) >= 2 else lf.shape[-1]
-                std = 0.02 if lf.init == "embed" else 1.0 / math.sqrt(
-                    max(fan_in, 1))
-                p.copy_(torch.randn(lf.shape, generator=generator,
-                                    device=device) * std)
+                _set_leaf(mod, name, values[cut].to(getattr(mod, name).dtype,
+                                                    copy=True))
+            del values
     return model
+
+
+def _set_leaf(mod: nn.Module, name: str, value: torch.Tensor):
+    setattr(mod, name, nn.Parameter(value.contiguous(), requires_grad=False))
 
 
 #: bf16 in numpy: raw 2-byte values, as ``np.asarray`` of the reference's
@@ -334,56 +387,75 @@ def to_jax_params(cfg: ModelConfig, model: Transformer) -> dict:
 
 
 @torch.no_grad()
-def from_jax_params(cfg: ModelConfig, tree, device="cuda") -> Transformer:
+def from_jax_params(cfg: ModelConfig, tree, device="cuda", mesh=None,
+                    rules=None) -> Transformer:
     """The reference package's ``init_params`` tree, with numpy arrays as
     leaves, as a port model.  The stacked leading ``num_blocks`` dim of
-    ``tree["blocks"]`` is split into per-layer modules."""
-    model = Transformer(cfg, device)
-    for name in model.leaves:
-        getattr(model, name).copy_(_from_numpy(tree[name]))
+    ``tree["blocks"]`` is split into per-layer modules.  With (`mesh`,
+    `rules`) only this rank's shard of each leaf is kept, as
+    ``init_params`` keeps it."""
+    model = Transformer(cfg, device if mesh is None else "meta")
     P = len(cfg.block_pattern)
-    for i, layer in enumerate(model.layers):
-        if i < cfg.first_k_dense:
-            src = {n: tree["prefix"][f"l{i}"][n] for n in layer.leaves}
+    for i, mod in _leaf_modules(model):
+        if i is None:
+            src = tree
+        elif i < cfg.first_k_dense:
+            src = tree["prefix"][f"l{i}"]
         else:
             blk, j = divmod(i - cfg.first_k_dense, P)
-            src = {n: tree["blocks"][f"p{j}"][n][blk] for n in layer.leaves}
-        for name, a in src.items():
-            getattr(layer, name).copy_(_from_numpy(a))
+            src = {n: a[blk] for n, a in tree["blocks"][f"p{j}"].items()}
+        for name, lf in mod.leaves.items():
+            a = src[name]
+            cut = _local(lf, mesh, rules)
+            if cut is None:
+                getattr(mod, name).copy_(_from_numpy(a))
+            else:
+                dtype = getattr(mod, name).dtype
+                _set_leaf(mod, name, _from_numpy(np.asarray(a)[cut]).to(
+                    device=device, dtype=dtype))
     return model
 
 
-def _layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                 max_len: int, device) -> dict[str, torch.Tensor]:
-    dt = DTYPES[cfg.dtype]
-
-    def zeros(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
+def _layer_state_leaves(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                        max_len: int) -> dict[str, Leaf]:
+    """One layer's state (module docstring), zeros, with the reference's
+    logical axes (its ``layer_state_leaves``)."""
+    cdt = cfg.dtype
     if spec.mixer == "rwkv":
         K = cfg.rwkv_head_dim
-        return {"wkv": zeros(batch, cfg.d_model // K, K, K,
-                             dtype=torch.float32),
-                "shift_t": zeros(batch, cfg.d_model),
-                "shift_c": zeros(batch, cfg.d_model)}
+        return {"wkv": Leaf((batch, cfg.d_model // K, K, K),
+                            ("batch", "heads", None, None), "zeros",
+                            "float32"),
+                "shift_t": Leaf((batch, cfg.d_model), ("batch", "embed"),
+                                "zeros", cdt),
+                "shift_c": Leaf((batch, cfg.d_model), ("batch", "embed"),
+                                "zeros", cdt)}
     if spec.mixer == "mamba":
         mc = cfg.mamba
         di = mc.expand * cfg.d_model
-        return {"ssm": zeros(batch, di, mc.d_state, dtype=torch.float32),
-                "conv": zeros(batch, mc.d_conv - 1, di)}
+        return {"ssm": Leaf((batch, di, mc.d_state), ("batch", "ff", None),
+                            "zeros", "float32"),
+                "conv": Leaf((batch, mc.d_conv - 1, di),
+                             ("batch", None, "ff"), "zeros", cdt)}
     if spec.mixer == "cross_attn":
         shape = (batch, cfg.num_vision_tokens, cfg.num_kv_heads,
                  cfg.head_dim_)
-        return {"xk": zeros(*shape), "xv": zeros(*shape)}
+        axes = ("batch", None, "kv_heads", None)
+        return {"xk": Leaf(shape, axes, "zeros", cdt),
+                "xv": Leaf(shape, axes, "zeros", cdt)}
     if cfg.kv_lora_rank:
-        return {"c_kv": zeros(batch, max_len, cfg.kv_lora_rank),
-                "k_rope": zeros(batch, max_len, cfg.qk_rope_dim)}
-    kv_dt = DTYPES[cfg.kv_cache_dtype or cfg.dtype]
+        return {"c_kv": Leaf((batch, max_len, cfg.kv_lora_rank),
+                             ("batch", "ctx", "kv_lora"), "zeros", cdt),
+                "k_rope": Leaf((batch, max_len, cfg.qk_rope_dim),
+                               ("batch", "ctx", None), "zeros", cdt)}
+    kv_dt = cfg.kv_cache_dtype or cdt
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    st = {"k": zeros(*shape, dtype=kv_dt), "v": zeros(*shape, dtype=kv_dt)}
-    if kv_dt == torch.int8:
+    axes = ("batch", "ctx", "kv_heads", None)
+    st = {"k": Leaf(shape, axes, "zeros", kv_dt),
+          "v": Leaf(shape, axes, "zeros", kv_dt)}
+    if kv_dt == "int8":
         for name in ("k_scale", "v_scale"):
-            st[name] = zeros(*shape[:3], dtype=torch.float32)
+            st[name] = Leaf(shape[:3], axes[:3], "zeros", "float32")
     return st
 
 
@@ -393,7 +465,9 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int,
     cfg.kv_cache_dtype or cfg.dtype, or MLA's latent caches in cfg.dtype,
     (batch, max_len, ...); cross-attention's image keys / values and the
     Mamba and RWKV-6 recurrent states, which have no max_len."""
-    return [_layer_state(cfg, spec, batch, max_len, device)
+    return [{n: torch.zeros(lf.shape, dtype=DTYPES[lf.dtype], device=device)
+             for n, lf in _layer_state_leaves(cfg, spec, batch,
+                                              max_len).items()}
             for spec in cfg.layer_specs]
 
 
@@ -402,6 +476,26 @@ def abstract_state(cfg: ModelConfig, batch: int,
     """The state's shapes and dtypes on the ``meta`` device: no memory is
     allocated (the reference's ShapeDtypeStruct tree)."""
     return init_state(cfg, batch, max_len, "meta")
+
+
+def state_axes(cfg: ModelConfig, batch: int = 1,
+               max_len: int = 8) -> list[dict[str, tuple]]:
+    """Each state leaf's logical axes, in ``init_state``'s layout (a dict a
+    layer; the reference keeps layer i under prefix/l{i} or stacks it under
+    blocks/p{j} as ``reference_paths`` says of its parameters)."""
+    return [{n: lf.axes for n, lf in _layer_state_leaves(
+        cfg, spec, batch, max_len).items()} for spec in cfg.layer_specs]
+
+
+def shard_state(cfg: ModelConfig, state, mesh, rules):
+    """This rank's shard of a whole `state` (``init_state``'s layout) under
+    (`mesh`, `rules`): each leaf cut by its logical axes."""
+    out = []
+    for st, axes in zip(state, state_axes(cfg)):
+        out.append({n: local_shard(t, logical_to_pspec(
+            axes[n], rules, tuple(t.shape), mesh), mesh)
+            for n, t in st.items()})
+    return out
 
 
 def count_params(model: nn.Module) -> int:

@@ -1,0 +1,529 @@
+"""The port's expert-parallel MoE path (``models.ops._moe_ep_path``) over
+``torch.distributed``: 8 gloo ranks on the CPU, mesh ("data", "model") =
+(2, 4), against
+
+* the port's dense path: ``forward_train`` of Kimi K2 SMOKE at capacity
+  factor 100 (no pair dropped) within 1e-4, the reference EP test's bound
+  (``tests/test_moe_ep.py``), and every leaf's gradient within 2e-4 of
+  the leaf's largest |gradient|;
+* the reference's own EP path: ``repro.models.ops.apply_moe_ffn`` under
+  ``shard_map`` on 8 host devices, in one JAX subprocess, at a capacity
+  factor where pairs are dropped, for S > 1 (tokens over "data") and the
+  weight-stationary S == 1 (expert d_ff over "data"): outputs and aux
+  within 1e-5 (f32).
+
+One world of ranks (``torch.multiprocessing``, spawn, a FileStore in a
+temp dir) and the JAX subprocess run once for the module, side by side;
+each rank saves what it computed and the tests read it.  The gradients:
+each rank backpropagates its own objective, <C, its logits> + the EP aux,
+and then sums every leaf's gradient over the batch axis; the dense side
+is <C, the whole batch's logits> + the mean of the batch shards' aux
+losses, which is what the EP aux is (the reference's pmean).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import tempfile
+import types
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as tmp
+
+from repro.configs import get_config as jget_config
+from repro.models import ops as jops
+from repro_torch import models as tm
+from repro_torch.configs import get_config
+from repro_torch.models import ops as tops
+from repro_torch.sharding import axis_rules, local_slices, logical_to_pspec
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "kimi_k2_1t_a32b"
+MESH = (2, 4)
+AXES = ("data", "model")
+WORLD = MESH[0] * MESH[1]
+DROP_CF = 0.5        # cap = max(8, T k / E x 0.5) = 8 slots for 16 pairs
+B, S = 4, 16         # forward_train / the S > 1 layer: 2 rows a data shard
+B_DEC = 32           # the S == 1 layer: 16 rows a data shard, 32 gathered
+LENGTHS = [16, 11, 5, 14]   # the served prompts, padded to 16
+MAX_LEN = 24
+NO_DROP_TOL = 1e-4
+REF_TOL = 1e-5
+GRAD_TOL = 2e-4
+#: the layer tests' rules; the tensor-parallel axes stay replicated
+RULES = {
+    "token": {"batch": ("data",), "experts": ("model",), "expert_ff": ()},
+    "stationary": {"batch": ("data",), "experts": ("model",),
+                   "expert_ff": ("data",)},
+}
+LAYER_LEAVES = ("ln2", "router", "we_gate", "we_up", "we_down", "ws_gate",
+                "ws_up", "ws_down")
+
+_JAX = r"""
+import dataclasses, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.configs import get_config
+from repro.launch.mesh import compat_make_mesh, compat_set_mesh
+from repro.models import ops
+from repro.sharding import axis_rules
+
+src, out = sys.argv[1], sys.argv[2]
+z = dict(np.load(src))
+cfg = get_config("kimi_k2_1t_a32b", smoke=True).replace(dtype="float32",
+                                                         param_dtype="float32")
+cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                          capacity_factor=float(z["cf"])))
+p = {k[2:]: jnp.asarray(v) for k, v in z.items() if k.startswith("p_")}
+mesh = compat_make_mesh((2, 4), ("data", "model"))
+res = {}
+for kind, x, ff in (("token", z["x_token"], ()),
+                    ("stationary", z["x_stationary"], ("data",))):
+    rules = {"batch": ("data",), "experts": ("model",), "expert_ff": ff}
+    with axis_rules(rules, mesh), compat_set_mesh(mesh):
+        y, aux = jax.jit(lambda p, x: ops.apply_moe_ffn(cfg, p, x))(
+            p, jnp.asarray(x))
+    res[f"y_{kind}"], res[f"aux_{kind}"] = np.asarray(y), np.asarray(aux)
+
+
+def loss(p, x, cfg):
+    y, aux = ops.apply_moe_ffn(cfg, p, x)
+    return (y * z["c_token"]).sum() + aux
+
+
+# the gradients of the token layout, with drops; then at capacity factor
+# 100, the EP path's gradients of <C, y> against its dense path's
+grad = jax.grad(loss, argnums=(0, 1))
+x = jnp.asarray(z["x_token"])
+no_drop = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+rules = {"batch": ("data",), "experts": ("model",), "expert_ff": ()}
+with axis_rules(rules, mesh), compat_set_mesh(mesh):
+    gp, gx = jax.jit(grad, static_argnums=2)(p, x, cfg)
+    ep_p, ep_x = jax.jit(jax.grad(lambda p, x: (ops.apply_moe_ffn(
+        no_drop, p, x)[0] * z["c_token"]).sum(), argnums=(0, 1)))(p, x)
+dn_p, dn_x = jax.grad(lambda p, x: (ops.apply_moe_ffn(
+    no_drop, p, x)[0] * z["c_token"]).sum(), argnums=(0, 1))(p, x)
+res["g_x"] = np.asarray(gx)
+with axis_rules(rules, mesh), compat_set_mesh(mesh):
+    ga_p, ga_x = jax.jit(jax.grad(lambda p, x: ops.apply_moe_ffn(
+        cfg, p, x)[1], argnums=(0, 1)))(p, x)
+res["ga_router"], res["ga_x"] = np.asarray(ga_p["router"]), np.asarray(ga_x)
+for k in p:
+    res[f"g_{k}"] = np.asarray(gp[k])
+    res[f"hazard_{k}"] = np.abs(np.asarray(ep_p[k]) - np.asarray(dn_p[k])
+                                ).max() / np.abs(np.asarray(dn_p[k])).max()
+res["hazard_x"] = np.abs(np.asarray(ep_x) - np.asarray(dn_x)).max() \
+    / np.abs(np.asarray(dn_x)).max()
+np.savez(out, **res)
+print("JAX_EP_OK")
+"""
+
+
+def _moe_cfg(cf, f32=True):
+    cfg = get_config(ARCH, smoke=True)
+    if f32:
+        cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def _layer_inputs(seed=0):
+    """One MoE layer's weights and the two layers' inputs, numpy f32."""
+    cfg = _moe_cfg(DROP_CF)
+    rng = np.random.RandomState(seed)
+    d, m = cfg.d_model, cfg.moe
+    e, f, fs = m.num_experts, m.d_ff_expert, m.num_shared * m.d_ff_expert
+    shapes = {"ln2": (d,), "router": (d, e), "we_gate": (e, d, f),
+              "we_up": (e, d, f), "we_down": (e, f, d), "ws_gate": (d, fs),
+              "ws_up": (d, fs), "ws_down": (fs, d)}
+    z = {f"p_{k}": (rng.standard_normal(s) / np.sqrt(s[-2] if len(s) > 1
+                                                      else 1)
+                    + (1.0 if k == "ln2" else 0.0)).astype(np.float32)
+         for k, s in shapes.items()}
+    z["x_token"] = rng.standard_normal((B, S, d)).astype(np.float32)
+    z["x_stationary"] = rng.standard_normal((B_DEC, 1, d)).astype(np.float32)
+    z["c_token"] = rng.standard_normal((B, S, d)).astype(np.float32)
+    z["cf"] = np.float32(DROP_CF)
+    return z
+
+
+def _mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", MESH, mesh_dim_names=AXES)
+
+
+def _layer(cfg, z, mesh, rules):
+    """This rank's shards of the layer's weights, a namespace as
+    ``apply_moe_ffn`` reads them."""
+    axes = {n: lf.axes for n, lf in tm.params._moe_ffn_leaves(cfg).items()}
+    p = {}
+    for n in LAYER_LEAVES:
+        a = z[f"p_{n}"]
+        cut = local_slices(a.shape, logical_to_pspec(axes[n], rules, a.shape,
+                                                     mesh), mesh)
+        p[n] = torch.from_numpy(np.ascontiguousarray(a[cut]))
+    return types.SimpleNamespace(**p)
+
+
+def _batch_rows(mesh, n_rows):
+    d = mesh.get_coordinate()[0]
+    per = n_rows // MESH[0]
+    return slice(d * per, (d + 1) * per)
+
+
+def _rank_main(rank, tmpdir):
+    """One rank: the layer cases, then Kimi K2 SMOKE's forward_train and
+    gradients, then a forward at capacity factor 0.1; saves them all."""
+    from repro_torch.launch.mesh import port_rules
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmpdir, "store"), WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=WORLD)
+    try:
+        mesh = _mesh()
+        out = {}
+        z = dict(np.load(os.path.join(tmpdir, "inputs.npz")))
+        cfg = _moe_cfg(DROP_CF)
+        for kind, rules in RULES.items():
+            x = torch.from_numpy(z[f"x_{kind}"])
+            x = x[_batch_rows(mesh, x.shape[0])]
+            tops.reset_ep_pairs()
+            with axis_rules(rules, mesh), torch.no_grad():
+                y, aux = tops.apply_moe_ffn(cfg, _layer(cfg, z, mesh, rules),
+                                            x)
+            out[f"y_{kind}"], out[f"aux_{kind}"] = y, aux
+            out[f"pairs_{kind}"] = torch.stack([
+                torch.as_tensor(tops.EP_PAIRS[k]) for k in
+                ("routed", "dropped")])
+        # the token layout's gradients, with drops: weights summed over
+        # the data axis, the input's own rows
+        p = _layer(cfg, z, mesh, RULES["token"])
+        x = torch.from_numpy(z["x_token"])[_batch_rows(mesh, B)]
+        for q in (x, *vars(p).values()):
+            q.requires_grad_(True)
+        with axis_rules(RULES["token"], mesh):
+            y, aux = tops.apply_moe_ffn(cfg, p, x)
+            c = torch.from_numpy(z["c_token"])[_batch_rows(mesh, B)]
+            ga = torch.autograd.grad(aux, (p.router, x), retain_graph=True)
+            ((y * c).sum() + aux).backward()
+        dist.all_reduce(ga[0], group=mesh.get_group("data"))
+        out["ga_router"], out["ga_x"] = ga
+        out["g_x"] = x.grad
+        for n, q in vars(p).items():
+            dist.all_reduce(q.grad, group=mesh.get_group("data"))
+            out[f"g_{n}"] = q.grad
+
+        rules = port_rules({"batch": ("data",), "experts": ("model",),
+                            "heads": ("model",), "expert_ff": ()})
+        cfg = _moe_cfg(100.0)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh=mesh, rules=rules)
+        for q in model.parameters():
+            q.requires_grad_(True)
+        toks = _tokens(cfg)[_batch_rows(mesh, B)]
+        with axis_rules(rules, mesh):
+            logits, aux = tm.forward_train(cfg, model, toks)
+            cot = _cotangent(cfg)[_batch_rows(mesh, B)]
+            ((logits * cot).sum() + aux).backward()
+        data = mesh.get_group("data")
+        for name, q in model.named_parameters():
+            dist.all_reduce(q.grad, group=data)
+            out[f"grad.{name}"] = q.grad
+        out["logits"], out["aux"] = logits.detach(), aux.detach()
+        out.update(_serve_and_build(mesh))
+
+        cfg = _moe_cfg(0.1)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh=mesh, rules=rules)
+        tops.reset_ep_pairs()
+        with axis_rules(rules, mesh), torch.no_grad():
+            out["logits_cf01"], _ = tm.forward_train(cfg, model, toks)
+        out["dropped_cf01"] = torch.as_tensor(tops.EP_PAIRS["dropped"])
+        torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_and_build(mesh):
+    """Phase 13's path at SMOKE size: the whole batch's prefill with the
+    experts over "model", then the state cut to this rank's rows and
+    decode steps under the decode rules (weight-stationary: d_ff over
+    "data"), the model rebuilt for them.  Also whether the sharded builds
+    (``init_params``, and ``from_jax_params`` of the whole model's tree)
+    hold exactly the whole model's values."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import act_rules, port_rules
+    cfg = _moe_cfg(100.0)
+    gen = torch.Generator()
+    whole = tm.init_params(cfg, gen.manual_seed(0), "cpu")
+    rules = {"prefill": port_rules({"batch": (), "experts": ("model",),
+                                    "expert_ff": ()}),
+             "decode": port_rules(act_rules(InputShape(
+                 "decode", MAX_LEN, B, "decode"), multi_pod=False))}
+    out = {"same_values": True}
+    axes = tm.params.param_axes(cfg)
+    models = {}
+    for kind, rl in rules.items():
+        models[kind] = tm.init_params(cfg, gen.manual_seed(0), "cpu", mesh,
+                                      rl)
+        tree = tm.from_jax_params(cfg, tm.to_jax_params(cfg, whole), "cpu",
+                                  mesh, rl)
+        for (n, q), t in zip(whole.named_parameters(),
+                             tree.parameters()):
+            spec = logical_to_pspec(axes[n], rl, tuple(q.shape), mesh)
+            want = q[local_slices(q.shape, spec, mesh)]
+            out["same_values"] &= torch.equal(dict(
+                models[kind].named_parameters())[n], want) \
+                and torch.equal(t, want)
+    toks, steps = _serve_inputs(cfg)
+    with axis_rules(rules["prefill"], mesh), torch.no_grad():
+        logits, state = tm.prefill(cfg, models["prefill"], tm.init_state(
+            cfg, B, MAX_LEN, "cpu"), toks, LENGTHS)
+    out["serve"] = [logits]
+    state = tm.params.shard_state(cfg, state, mesh, rules["decode"])
+    rows = _batch_rows(mesh, B)
+    with axis_rules(rules["decode"], mesh), torch.no_grad():
+        for t in range(steps.shape[0]):
+            logits, state = tm.decode_step(
+                cfg, models["decode"], state, steps[t][rows],
+                np.array(LENGTHS)[rows] + t)
+            out["serve"].append(logits)
+    return out
+
+
+def _serve_inputs(cfg):
+    rng = np.random.RandomState(3)
+    toks = np.zeros((B, max(LENGTHS)), np.int64)
+    for b, L in enumerate(LENGTHS):
+        toks[b, :L] = rng.randint(0, cfg.vocab_size, L)
+    return toks, rng.randint(0, cfg.vocab_size, (3, B))
+
+
+def _tokens(cfg):
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (B, S)))
+
+
+def _cotangent(cfg):
+    return torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (B, S, cfg.vocab_size)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def world():
+    """Runs the JAX subprocess and the 8 ranks side by side; returns the
+    JAX results, each rank's results and the rank's mesh coordinates."""
+    with tempfile.TemporaryDirectory() as tmpdir:
+        np.savez(os.path.join(tmpdir, "inputs.npz"), **_layer_inputs())
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   PYTHONPATH=str(ROOT / "src"))
+        ref = subprocess.Popen(
+            [sys.executable, "-c", _JAX, os.path.join(tmpdir, "inputs.npz"),
+             os.path.join(tmpdir, "jax.npz")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            tmp.start_processes(_rank_main, args=(tmpdir,), nprocs=WORLD,
+                                join=True, start_method="spawn")
+        finally:
+            stdout, stderr = ref.communicate(timeout=300)
+        assert ref.returncode == 0 and "JAX_EP_OK" in stdout, stderr[-3000:]
+        jax_out = dict(np.load(os.path.join(tmpdir, "jax.npz")))
+        ranks = [torch.load(os.path.join(tmpdir, f"rank{r}.pt"))
+                 for r in range(WORLD)]
+    coords = [divmod(r, MESH[1]) for r in range(WORLD)]
+    return jax_out, ranks, coords
+
+
+@pytest.fixture(scope="module")
+def dense():
+    """The port's dense path on one process: the whole batch's logits, and
+    the gradients of <C, logits> + the mean of the two batch shards' aux."""
+    cfg = _moe_cfg(100.0)
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for q in model.parameters():
+        q.requires_grad_(True)
+    toks = _tokens(cfg)
+    logits, _ = tm.forward_train(cfg, model, toks)
+    per = B // MESH[0]
+    aux = sum(tm.forward_train(cfg, model, toks[i * per:(i + 1) * per])[1]
+              for i in range(MESH[0])) / MESH[0]
+    ((logits * _cotangent(cfg)).sum() + aux).backward()
+    return cfg, model, logits.detach(), aux.detach()
+
+
+def test_prefill_then_weight_stationary_decode_matches_dense(world):
+    """The prefill with the experts over "model", then three decode steps
+    on each rank's rows of the state under the decode rules: every rank's
+    logits equal the dense path's within 1e-4."""
+    _, ranks, coords = world
+    cfg = _moe_cfg(100.0)
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks, steps = _serve_inputs(cfg)
+    logits, state = tm.prefill(cfg, model, tm.init_state(
+        cfg, B, MAX_LEN, "cpu"), toks, LENGTHS)
+    want = [logits]
+    for t in range(steps.shape[0]):
+        logits, state = tm.decode_step(cfg, model, state, steps[t],
+                                       np.array(LENGTHS) + t)
+        want.append(logits)
+    for out, (d, _) in zip(ranks, coords):
+        np.testing.assert_allclose(out["serve"][0], want[0],
+                                   atol=NO_DROP_TOL, rtol=NO_DROP_TOL)
+        for got, w in zip(out["serve"][1:], want[1:]):
+            np.testing.assert_allclose(got, w[_rows(B, d)],
+                                       atol=NO_DROP_TOL, rtol=NO_DROP_TOL)
+
+
+def test_sharded_builds_hold_the_whole_models_values(world):
+    """``init_params`` and ``from_jax_params`` under (mesh, rules) keep, on
+    every rank, exactly the whole model's values of its shard of each
+    leaf, in the prefill and the decode layouts."""
+    _, ranks, _ = world
+    assert all(out["same_values"] for out in ranks)
+
+
+def _rows(n, d):
+    per = n // MESH[0]
+    return slice(d * per, (d + 1) * per)
+
+
+def test_forward_train_matches_dense_without_drops(world, dense):
+    """Each rank's logits (its data shard's rows) equal the dense path's
+    within 1e-4, and its aux equals the mean of the shards' aux losses."""
+    _, ranks, coords = world
+    _, _, logits, aux = dense
+    for out, (d, _) in zip(ranks, coords):
+        np.testing.assert_allclose(out["logits"], logits[_rows(B, d)],
+                                   atol=NO_DROP_TOL, rtol=NO_DROP_TOL)
+        np.testing.assert_allclose(out["aux"], aux, atol=NO_DROP_TOL,
+                                   rtol=NO_DROP_TOL)
+
+
+def test_gradients_match_dense(world, dense):
+    """Every leaf's gradient, summed over the data axis, is the dense
+    path's (its expert slice for the expert leaves) within 2e-4 of the
+    leaf's largest |gradient|; none is zero."""
+    from repro_torch.launch.mesh import port_rules
+    _, ranks, _ = world
+    cfg, model, _, _ = dense
+    rules = port_rules({"batch": ("data",), "experts": ("model",),
+                        "expert_ff": ()})
+    axes = tm.params.param_axes(cfg)
+    spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
+    for r, out in enumerate(ranks):
+        coord = dict(zip(AXES, divmod(r, MESH[1])))
+        for name, q in model.named_parameters():
+            want = q.grad
+            spec = logical_to_pspec(axes[name], rules, tuple(want.shape),
+                                    spec_mesh)
+            want = want[local_slices(want.shape, spec, spec_mesh, coord)]
+            got = out[f"grad.{name}"]
+            scale = want.abs().max().item()
+            assert scale > 0, name
+            err = (got - want).abs().max().item()
+            assert err <= GRAD_TOL * scale, (r, name, err, scale)
+
+
+@pytest.mark.parametrize("kind", ["token", "stationary"])
+def test_matches_reference_ep_path_with_drops(world, kind):
+    """At capacity factor 0.5 (8 slots an expert for 16 pairs on average)
+    pairs are dropped, and the port drops the reference's: each rank's
+    rows of the layer's output and its aux equal the reference's
+    ``shard_map`` path within 1e-5."""
+    jax_out, ranks, coords = world
+    y_ref = jax_out[f"y_{kind}"]
+    k = get_config(ARCH, smoke=True).moe.top_k
+    routed = sum(int(o[f"pairs_{kind}"][0]) for o in ranks)
+    # every pair is routed to one EP rank of its data shard; the stationary
+    # layout's data ranks each hold half of every expert's d_ff, all tokens
+    assert routed == (B * S * k if kind == "token" else MESH[0] * B_DEC * k)
+    assert sum(int(o[f"pairs_{kind}"][1]) for o in ranks) > 0, \
+        "no pair was dropped"
+    for out, (d, _) in zip(ranks, coords):
+        np.testing.assert_allclose(out[f"y_{kind}"],
+                                   y_ref[_rows(y_ref.shape[0], d)],
+                                   atol=REF_TOL, rtol=REF_TOL)
+        np.testing.assert_allclose(out[f"aux_{kind}"],
+                                   jax_out[f"aux_{kind}"], atol=REF_TOL,
+                                   rtol=REF_TOL)
+
+
+def test_layer_gradients_match_reference_ep_path(world):
+    """With pairs dropped (capacity factor 0.5), the gradients of <C, y> +
+    aux through the token layout, the weights' summed over the data axis,
+    equal ``jax.grad`` through the reference's ``shard_map`` path within
+    2e-4 of each one's largest |gradient|: the input's rows of this rank's
+    data shard, the experts' slice of this rank's EP index; and so do the
+    router's and the input's gradients of the aux loss alone."""
+    jax_out, ranks, coords = world
+    cfg = _moe_cfg(DROP_CF)
+    axes = {n: lf.axes for n, lf in tm.params._moe_ffn_leaves(cfg).items()}
+    spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
+    for out, (d, m) in zip(ranks, coords):
+        want = jax_out["g_x"][_rows(B, d)]
+        scale = np.abs(jax_out["g_x"]).max()
+        assert np.abs(out["g_x"].numpy() - want).max() <= GRAD_TOL * scale
+        for n in LAYER_LEAVES:
+            g = jax_out[f"g_{n}"]
+            spec = logical_to_pspec(axes[n], RULES["token"], g.shape,
+                                    spec_mesh)
+            want = g[local_slices(g.shape, spec, spec_mesh,
+                                  {"data": d, "model": m})]
+            err = np.abs(out[f"g_{n}"].numpy() - want).max()
+            assert err <= GRAD_TOL * np.abs(g).max(), (n, d, m, err)
+        # the aux loss alone: it is 0.01 of the rest, so held apart
+        for n, rows in (("router", slice(None)), ("x", _rows(B, d))):
+            g = jax_out[f"ga_{n}"]
+            err = np.abs(out[f"ga_{n}"].numpy() - g[rows]).max()
+            assert err <= GRAD_TOL * np.abs(g).max(), (n, d, m, err)
+
+
+def test_reference_ep_gradients_equal_its_dense_ones(world):
+    """The reference side: without drops, ``jax.grad`` through its
+    ``shard_map`` EP path (``check_vma=False``) gives the dense path's
+    gradients of <C, y> within 2e-4 of each one's largest (no gradient is
+    counted once per EP rank)."""
+    jax_out, _, _ = world
+    for n in (*LAYER_LEAVES, "x"):
+        assert jax_out[f"hazard_{n}"] <= GRAD_TOL, (n, jax_out[f"hazard_{n}"])
+
+
+def test_capacity_drop_stays_finite(world):
+    """The reference's capacity test, mirrored: at capacity factor 0.1 the
+    dense path (no dropping there) and the EP path, which drops, give
+    finite logits."""
+    _, ranks, _ = world
+    assert sum(int(o["dropped_cf01"]) for o in ranks) > 0
+    assert all(torch.isfinite(o["logits_cf01"]).all() for o in ranks)
+    cfg = _moe_cfg(0.1)
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits, _ = tm.forward_train(cfg, model, _tokens(cfg)[:2])
+    assert torch.isfinite(logits).all()
+
+
+def test_router_aux_loss_increases_with_imbalance():
+    """The reference's router test, mirrored, and the port's aux equal to
+    the reference's on both routers."""
+    cfg = get_config(ARCH, smoke=True)
+    d, e = cfg.d_model, cfg.moe.num_experts
+    rng = np.random.RandomState(0)
+    # positive activations so the skewed column is dominant for EVERY token
+    h = np.abs(rng.standard_normal((1, 32, d))).astype(np.float32)
+    balanced = (1e-3 * rng.standard_normal((d, e))).astype(np.float32)
+    skew = np.zeros((d, e), np.float32)
+    skew[:, 0] = 5.0
+    auxes = []
+    for router in (balanced, skew):
+        _, _, aux = tops._router(cfg, types.SimpleNamespace(
+            router=torch.from_numpy(router)), torch.from_numpy(h))
+        _, _, jaux = jops._router(jget_config(ARCH, smoke=True),
+                                  {"router": jax.numpy.asarray(router)},
+                                  jax.numpy.asarray(h))
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+        auxes.append(float(aux))
+    assert auxes[1] > auxes[0]
