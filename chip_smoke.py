@@ -161,6 +161,25 @@ Phases (any failure exits non-zero; nothing is skipped):
                attention kernels launch in every rank (printed, not in the
                kernels line); each rank's peak GiB and walls, the phase's
                wall
+ 14. roofline — (a) the dry-run (launch/dryrun.py) of every architecture
+               x input shape on both production meshes, (16, 16) and
+               (2, 16, 16): one rank's step on meta tensors inside a fake
+               group of 256 / 512 ranks, in SWEEP_JOBS processes on the
+               host (no card), after (b); the counts of ok, skipped and
+               error records, every pair whose per-rank arguments + temp
+               bytes pass one H100's 80 GB, and the report's markdown
+               (launch/roofline_report.py); any error fails; (b)
+               Llama-3.1-8B at its published widths and depth (bf16, seed
+               0): a decode step at B=4 with ~1024 of context, the
+               prefill of one 1024-token prompt and a train step of 1 x
+               2048 (remat, bf16 factored moments), each counted on meta
+               (launch/roofline.count_step: the plain path) and run on the
+               card through the kernels under torch.profiler: counted
+               FLOPs against MODEL_FLOPS, t_compute and t_memory, the
+               arguments read once and outputs written once over 3.35
+               TB/s, device and wall ms against the roofline's largest
+               term, the predicted peak against the allocator's; the
+               attention kernels' launches on their own line
 
 Phases run in this order, one after another; each frees its model before
 the next, and each one's wall time is printed as "[phase] name: s".
@@ -173,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2902,6 +2922,222 @@ def phase_ep():
         f"one card: not an EP speed)")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: the dry-run over the production meshes, and the counted
+# roofline held against Llama-3.1-8B's steps on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_JOBS = 6                          # the sweep's processes, on the host
+SWEEP_TIMEOUT = 600
+H100_BYTES = 80e9                       # one H100's HBM
+#: (b)'s steps: profile_decode's (B = 4 slots at ~1024 tokens of context
+#: in a 2048-token cache), profile_prefill's (one 1024-token prompt), and
+#: phase 12's (B = 1 x 2048, remat, bf16 factored moments)
+ROOF_DECODE = dict(batch=4, ctx=1024, max_len=2048)
+ROOF_PREFILL = dict(length=1024, max_len=2048)
+ROOF_TRAIN = dict(batch=1, seq=2048)
+ROOF_REPS = {"decode": 8, "prefill": 4, "train": 1}   # timed after a warm-up
+
+
+def sweep_start(out):
+    """(a): the dry-run of every arch x shape on both production meshes, in
+    SWEEP_JOBS processes on the host (meta tensors, a fake group of their
+    own: no card, nothing of phase 13's)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--jobs", str(SWEEP_JOBS), "--out", out],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def sweep_finish(proc, out, t0):
+    """Wait for (a); print the counts by status, the pairs that do not fit
+    one H100 and the report; fail on any error record."""
+    from repro_torch.launch import roofline_report
+    try:
+        _, err = proc.communicate(timeout=SWEEP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise PhaseFailed(f"roofline: the sweep took over {SWEEP_TIMEOUT} s")
+    recs = [json.loads(line) for line in open(out)] \
+        if os.path.exists(out) else []
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skipped", "error")}
+    log(f"[roofline] (a) the dry-run sweep: {len(recs)} records {counts} in "
+        f"{time.perf_counter() - t0:.1f} s ({SWEEP_JOBS} processes on the "
+        f"host, meta tensors, fake groups of 256 / 512 ranks)")
+    for r in recs:
+        if r["status"] == "error":
+            log(f"[roofline] error: {r['arch']} {r['shape']} {r['mesh']}: "
+                f"{r['error']}")
+    over = [r for r in recs if r["status"] == "ok"
+            and sum(r["memory"][k] for k in ("argument_bytes", "temp_bytes"))
+            > H100_BYTES]
+    log(f"[roofline] (a) {len(over)} ok pairs whose per-rank argument + "
+        f"temp bytes exceed one H100's 80 GB:")
+    for r in over:
+        m = r["memory"]
+        log(f"[roofline]   {r['arch']} {r['shape']} {r['mesh']}: arguments "
+            f"{m['argument_bytes'] / 1e9:.1f} GB + temp "
+            f"{m['temp_bytes'] / 1e9:.1f} GB")
+    if recs and counts["ok"]:
+        log(roofline_report.render(roofline_report.load(out)))
+    check(proc.returncode == 0 and counts["error"] == 0
+          and len(recs) == 96, f"roofline: the sweep exited "
+          f"{proc.returncode} with {len(recs)} records {counts}: "
+          f"{err[-2000:]}")
+    return counts
+
+
+def roof_steps(cfg, device):
+    """(b)'s three steps of `cfg` on `device` ("cuda": a model of random
+    weights through the kernels; "meta": shapes only, the plain path, as
+    the dry-run counts it), over one model: {name: (make, InputShape)},
+    where make() -> (fn, args) makes the step's own state or moments."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import (decode_step, init_params, init_state,
+                                    prefill)
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    plain = device == "meta"
+    gen = None if plain else torch.Generator(device=device).manual_seed(0)
+    model = init_params(cfg, gen, device)
+    rng = np.random.RandomState(5)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).to(
+            device)
+    d, p, t = ROOF_DECODE, ROOF_PREFILL, ROOF_TRAIN
+    ocfg = AdamWConfig(**TRAIN_LR, moment_dtype="bfloat16", factored=True)
+
+    def decode():
+        return (partial(decode_step, cfg, plain_kernels=plain),
+                (model, init_state(cfg, d["batch"], d["max_len"], device),
+                 ints(d["batch"]), np.full(d["batch"], d["ctx"])))
+
+    def prompt():
+        return (partial(prefill, cfg, plain_kernels=plain),
+                (model, init_state(cfg, 1, p["max_len"], device),
+                 ints(1, p["length"]), [p["length"]]))
+
+    def train():
+        return (make_train_step(cfg, ocfg, remat=True, device=device,
+                                plain_kernels=plain),
+                (model, adamw_init(model, ocfg), ints(t["batch"], t["seq"]),
+                 ints(t["batch"], t["seq"])))
+    return {
+        "decode": (decode, InputShape("decode", d["ctx"], d["batch"],
+                                      "decode")),
+        "prefill": (prompt, InputShape("prefill", p["length"], 1,
+                                       "prefill")),
+        "train": (train, InputShape("train", t["seq"], t["batch"],
+                                    "train")),
+    }
+
+
+def roof_measure(fn, args, reps):
+    """One warm-up call, the wall of `reps` calls by the host's clock
+    (synced), then one call under torch.profiler with the peak memory
+    reset before it: (wall ms, device ms or None, peak bytes).  The
+    device time sums the card's kernels; a host range drawn on the
+    device's timeline ("adamw_update") is no kernel and is skipped."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)
+          and e.name != "adamw_update"]
+    return wall, (sum(us) / 1e3 if us else None), peak
+
+
+def roof_against_card(card):
+    """(b) Llama-3.1-8B at its published widths and depth, bf16: each step
+    counted on meta (count_step) and run on the card through the kernels;
+    the counted FLOPs against MODEL_FLOPS, the roofline terms, the least
+    time for the arguments read once and outputs written once, the
+    device and wall times against the roofline's largest term, the
+    predicted peak against the allocator's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import roofline as rf
+    cfg = get_config("llama31_8b")
+    counted = {}
+    for name, (make, shape) in roof_steps(cfg, "meta").items():
+        t = time.perf_counter()
+        c = rf.count_step(*(lambda fn, args: (fn, *args))(*make()))
+        counted[name] = (c, shape, time.perf_counter() - t)
+    t = time.perf_counter()
+    steps = roof_steps(cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"[roofline] (b) {cfg.name} made on the card in "
+        f"{time.perf_counter() - t:.1f} s ({card})")
+    kops.reset_launches()
+    rows = {}
+    for name, (make, _) in steps.items():
+        fn, args = make()
+        rows[name] = roof_measure(fn, args, ROOF_REPS[name])
+        del fn, args
+        torch.cuda.empty_cache()
+    launches = dict(kops.LAUNCHES)
+    del steps
+    log(f"[roofline] (b) kernel launches over the three steps (not in the "
+        f"kernels line): {launches}")
+    check(launches["chunked_prefill_attention"] > 0
+          and launches["decode_attention"] > 0,
+          "roofline: the attention kernels did not launch")
+    for name, (c, shape, t_count) in counted.items():
+        wall, dev, peak = rows[name]
+        model = rf.model_flops_estimate(cfg, shape)
+        t_c, t_m = c.flops / rf.PEAK_FLOPS, c.hbm_bytes / rf.HBM_BW
+        least = (c.memory["argument_bytes"] + c.memory["output_bytes"]) \
+            / rf.HBM_BW
+        roof = max(t_c, t_m, c.collective_bytes / rf.LINK_BW)
+        log(f"[roofline] (b) {cfg.name} {name} {shape.global_batch} x "
+            f"{shape.seq_len}: counted {c.flops / 1e12:.4f} TFLOP (plain "
+            f"path) vs MODEL_FLOPS {model / 1e12:.4f} (ratio "
+            f"{c.flops / model:.3f}); t_compute {t_c * 1e3:.3f} ms, "
+            f"t_memory {t_m * 1e3:.3f} ms ({c.hbm_bytes / 1e9:.2f} GB of "
+            f"eager traffic); arguments read once + outputs written once "
+            f"{least * 1e3:.3f} ms; counted in {t_count:.1f} s ({card})")
+        dev_s = "not measured" if dev is None else \
+            f"{dev:.3f} ms ({dev / 1e3 / roof:.2f} x the roofline)"
+        log(f"[roofline] (b) {cfg.name} {name} on the card: device {dev_s} "
+            f"(one call under the profiler); wall {wall:.3f} ms, the mean "
+            f"of {ROOF_REPS[name]} (synced host clock; {wall / 1e3 / roof:.2f}"
+            f" x the roofline's {roof * 1e3:.3f} ms, {wall / 1e3 / least:.1f}"
+            f" x the least time); peak {peak / 1e9:.2f} GB vs predicted "
+            f"{c.memory['peak_bytes'] / 1e9:.2f} GB ({card})")
+        check(math.isfinite(c.flops) and c.flops > 0 and wall > 0,
+              f"roofline: {name} counted or ran nothing")
+    return rows
+
+
+def phase_roofline(card):
+    """(b) on the card, then (a) the dry-run sweep on the host: the sweep's
+    processes would compete for the host that (b)'s walls are timed on."""
+    import tempfile
+    roof_against_card(card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out = os.path.join(tmpdir, "results.jsonl")
+        t0 = time.perf_counter()
+        sweep_finish(sweep_start(out), out, t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2934,6 +3170,7 @@ def main() -> int:
     timed(phase_control, figures, card)
     timed(phase_train, card)
     timed(phase_ep)
+    timed(phase_roofline, card)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.scan import scan
+
 NEG_INF = -2.0 ** 30
 
 
@@ -315,26 +317,30 @@ def wkv6_chunked(r, k, v, w, u, s0, chunk: int = 16):
         r, k, v, w = ext(r, 0.0), ext(k, 0.0), ext(v, 0.0), ext(w, 1.0)
     strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=r.device), diagonal=-1)
-    s = s0.to(_acc(s0.dtype))
-    ys = []
-    for c0 in range(0, S + pad, chunk):
-        rc, kc, vc, wc = (x[:, c0:c0 + chunk] for x in (r, k, v, w))
-        logw = torch.log(wc.clamp(min=1e-38))
-        L = torch.cumsum(logw, dim=1)                            # (B,C,H,K)
-        q_in = rc * torch.exp(L - logw)
-        k_out = kc * torch.exp(-L)
-        y = torch.einsum("bchk,bhkv->bchv", q_in, s)
-        scores = torch.einsum("bthk,bshk->bhts", q_in, k_out)
-        scores = torch.where(strict, scores, 0.0)
-        diag = (rc * u[None, None] * kc).sum(-1)                 # (B,C,H)
-        y = y + torch.einsum("bhts,bshv->bthv", scores, vc)
-        y = y + diag[..., None] * vc
-        L_C = L[:, -1:]                                          # (B,1,H,K)
-        k_carry = kc * torch.exp(L_C - L)
-        s = torch.exp(L_C[:, 0])[..., None] * s \
-            + torch.einsum("bchk,bchv->bhkv", k_carry, vc)
-        ys.append(y)
-    return torch.cat(ys, 1)[:, :S], s
+    s, y = scan(_wkv6_chunk, s0.to(_acc(s0.dtype)), (r, k, v, w),
+                (S + pad) // chunk, chunk, consts=(u, strict))
+    return y[:, :S], s
+
+
+def _wkv6_chunk(s, xs, u, strict):
+    """One chunk of ``wkv6_chunked``: the state entering it and its
+    (B, C, H, K) r, k, v, w -> (the state leaving it, its y)."""
+    rc, kc, vc, wc = xs
+    logw = torch.log(wc.clamp(min=1e-38))
+    L = torch.cumsum(logw, dim=1)                                # (B,C,H,K)
+    q_in = rc * torch.exp(L - logw)
+    k_out = kc * torch.exp(-L)
+    y = torch.einsum("bchk,bhkv->bchv", q_in, s)
+    scores = torch.einsum("bthk,bshk->bhts", q_in, k_out)
+    scores = torch.where(strict, scores, 0.0)
+    diag = (rc * u[None, None] * kc).sum(-1)                     # (B,C,H)
+    y = y + torch.einsum("bhts,bshv->bthv", scores, vc)
+    y = y + diag[..., None] * vc
+    L_C = L[:, -1:]                                              # (B,1,H,K)
+    k_carry = kc * torch.exp(L_C - L)
+    s = torch.exp(L_C[:, 0])[..., None] * s \
+        + torch.einsum("bchk,bchv->bhkv", k_carry, vc)
+    return s, y
 
 
 def wkv6_segmented(r, k, v, w, u, s0, chunk: int = 16, segment: int = 64):

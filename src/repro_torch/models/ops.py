@@ -28,15 +28,17 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.params import _RWKV_LORA  # lora width shared with decls
-from repro_torch.sharding import (axes_size, axis_group, current_mesh,
-                                  current_rules, shard_index)
+from repro_torch.models.params import built_axes
+from repro_torch.scan import scan
+from repro_torch.sharding import (all_gather, all_reduce, axes_size,
+                                  axis_group, current_mesh, current_rules,
+                                  reduce_scatter, shard_index)
 
 NEG_INF = -2.0 ** 30
 
@@ -337,20 +339,45 @@ def reset_ep_pairs():
         EP_PAIRS[name] = 0
 
 
-def _router(cfg: ModelConfig, p, h):
+class _SumShards(torch.autograd.Function):
+    """`x` summed over `group` forward; identity backward.  Each rank of
+    the group adds the same function of the sum to its loss, and the train
+    step sums the ranks' gradients: each rank's part of the sum's gradient
+    is its own share, counted once."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _router(cfg: ModelConfig, p, h, shards=None):
     """Softmax router, top-k renormalised, and the Switch load-balance aux
-    loss coef * E * sum(mean prob x share of routed (token, k) pairs)."""
+    loss coef * E * sum(mean prob x share of routed (token, k) pairs).
+    With `shards` = (group, n), h is one of n equal shards of the batch
+    over `group`, and the mean and the share are the whole batch's: the
+    experts' sums of probs and their pair counts are summed over the
+    group before the product (``_SumShards``)."""
     m = cfg.moe
     logits = h.float() @ p.router.float()
     probs = torch.softmax(logits, dim=-1)                # (..., E)
     top_p, top_i = torch.topk(probs, m.top_k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
     flat = probs.reshape(-1, m.num_experts)
-    me = flat.mean(0)
     ce = torch.zeros(m.num_experts, dtype=torch.float32, device=h.device)
     ce = ce.index_add_(0, top_i.reshape(-1), torch.ones(
         top_i.numel(), dtype=torch.float32, device=h.device))
-    ce = ce / max(flat.shape[0] * m.top_k, 1)
+    if shards is None:
+        tokens, me = flat.shape[0], flat.mean(0)
+    else:
+        group, n = shards
+        tokens = flat.shape[0] * n
+        me = _SumShards.apply(flat.sum(0), group) / tokens
+        ce = all_reduce(ce, group)
+    ce = ce / max(tokens * m.top_k, 1)
     aux = m.router_aux_coef * m.num_experts * (me * ce).sum()
     return top_p, top_i, aux
 
@@ -380,10 +407,22 @@ def _moe_dense_path(cfg: ModelConfig, p, h, top_p, top_i):
     return y.reshape(B, S, d)
 
 
-def _all_reduce(x, group):
-    x = x.contiguous()
-    dist.all_reduce(x, group=group)
-    return x
+class _GatherFF(torch.autograd.Function):
+    """A weight's shards along `dim` gathered whole over `group` (n ranks)
+    forward, the reference's ``shard_map`` in_spec that gathers FSDP'd
+    expert weights; backward the gradient summed over the group and cut
+    back to this rank's shard (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, w, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return all_gather(w, group, n).movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, dim = ctx.n, ctx.dim
+        parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
+        return reduce_scatter(parts, ctx.group), None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -397,7 +436,7 @@ class _Enter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return all_reduce(g, ctx.group), None
 
 
 class _Leave(torch.autograd.Function):
@@ -406,7 +445,7 @@ class _Leave(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, group):
-        return _all_reduce(y.clone(), group)
+        return all_reduce(y.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -421,23 +460,62 @@ class _AuxMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, aux, group, n, n_batch):
         ctx.n_batch = n_batch
-        return _all_reduce(aux.clone(), group) / n
+        return all_reduce(aux.clone(), group) / n
 
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n_batch, None, None, None
 
 
-def _dispatch_combine(cfg: ModelConfig, p, x, top_p, top_i, lo: int):
+def _batch_axes(mesh, rules, exclude=()) -> tuple[str, ...]:
+    """The mesh axes that the rules' "batch" maps to, but `exclude`."""
+    return tuple(a for a in rules.get("batch", ())
+                 if a in mesh.mesh_dim_names and a not in exclude)
+
+
+def _expert_weights(cfg: ModelConfig, p, mesh, ep_axes, ff_axes):
+    """(we_gate, we_up, we_down) of this rank's experts, with d_ff split
+    over `ff_axes` (whole when empty): the layout the path computes in.  A
+    model built under other rules holds d_ff split over its build's
+    "expert_ff" axes: those shards are gathered (``_GatherFF``), and cut
+    to `ff_axes` where these split it, as the reference's ``shard_map``
+    in_specs reshard its weights.  A layer that does not say how it was
+    built must already hold that layout."""
+    m = cfg.moe
+    have = built_axes(p, "we_gate", mesh)
+    have = ff_axes if have is None else have[2]
+    out = []
+    for name, dim in (("we_gate", 2), ("we_up", 2), ("we_down", 1)):
+        w = getattr(p, name)
+        if have != ff_axes and have:
+            w = _GatherFF.apply(w, axis_group(mesh, have),
+                                axes_size(mesh, have), dim)
+        if have != ff_axes and ff_axes:
+            i, n = shard_index(ff_axes, mesh)
+            f = w.shape[dim] // n
+            w = w.narrow(dim, i * f, f)
+        out.append(w)
+    want = (m.num_experts // axes_size(mesh, ep_axes), cfg.d_model,
+            m.d_ff_expert // axes_size(mesh, ff_axes))
+    if tuple(out[0].shape) != want:
+        raise ValueError(
+            f"{cfg.name}: local experts {tuple(out[0].shape)}, but the "
+            f"rules' {'decode' if ff_axes else 'token'} layout needs "
+            f"{want}: build the model under the same (mesh, rules)")
+    return out
+
+
+def _dispatch_combine(cfg: ModelConfig, w, x, top_p, top_i, lo: int):
     """The reference's ``local_moe`` for this rank's experts [lo, lo +
-    E_local): x (T, d) tokens; top_p / top_i (T, k).  Each (token, k) pair
+    E_local), whose weights `w` are (we_gate, we_up, we_down): x (T, d)
+    tokens; top_p / top_i (T, k).  Each (token, k) pair
     routed here takes the next slot of its expert (an exclusive cumsum over
     the pairs in token-major order); past cap = max(8, T k / E x capacity
     factor) it is dropped: it adds zero, and its output is read at slot
     min(pos, cap - 1) with weight 0.  Returns this rank's partial (T, d)."""
     m = cfg.moe
     T, d = x.shape
-    e_local = p.we_gate.shape[0]
+    e_local = w[0].shape[0]
     cap = int(max(8, T * m.top_k / m.num_experts * m.capacity_factor))
     flat_e = top_i.reshape(-1) - lo                      # (T*k,)
     local = (flat_e >= 0) & (flat_e < e_local)
@@ -453,10 +531,10 @@ def _dispatch_combine(cfg: ModelConfig, p, x, top_p, top_i, lo: int):
     buf = torch.zeros((e_local, cap, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((torch.where(keep, flat_e, 0), slot),
                         x[tok] * keep[:, None].to(x.dtype), accumulate=True)
-    y_e = _expert_ffn(cfg, p.we_gate, p.we_up, p.we_down, buf)
+    y_e = _expert_ffn(cfg, *w, buf)
     y_pairs = y_e[flat_e, torch.clamp(pos_e, max=cap - 1)]  # (T*k, d)
-    w = (top_p.reshape(-1) * keep).to(x.dtype)
-    return (y_pairs * w[:, None]).reshape(T, m.top_k, d).sum(1)
+    gate = (top_p.reshape(-1) * keep).to(x.dtype)
+    return (y_pairs * gate[:, None]).reshape(T, m.top_k, d).sum(1)
 
 
 def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
@@ -474,8 +552,10 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
       axes; each rank keeps its own rows.  Forward only.
 
     Each rank's expert slice [rank E_local, (rank + 1) E_local) and d_ff
-    slice are those of ``sharding.local_slices`` under the same rules:
-    the model is built by ``init_params(..., mesh, rules)``.  The aux loss
+    slice are those of ``sharding.local_slices`` under the same rules; a
+    model built by ``init_params(..., mesh, rules)`` under param rules
+    that split d_ff otherwise (FSDP over the batch axes) has its shards
+    gathered or cut to that layout (``_expert_weights``).  The aux loss
     is the mean of the per-shard Switch losses over the EP + ff + batch
     axes.  Returns (y (B, S, d), aux)."""
     m = cfg.moe
@@ -483,8 +563,7 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
     names = mesh.mesh_dim_names
     B, S, d = h.shape
     stationary = S == 1
-    batch_axes = tuple(a for a in rules.get("batch", ())
-                       if a in names and a not in ep_axes)
+    batch_axes = _batch_axes(mesh, rules, ep_axes)
     ff_axes = tuple(a for a in rules.get("expert_ff", ())
                     if a in names and a not in ep_axes) \
         if stationary else ()
@@ -492,12 +571,7 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
         ff_axes = ()
     n_ep = axes_size(mesh, ep_axes)
     e_local = m.num_experts // n_ep
-    want = (e_local, d, m.d_ff_expert // axes_size(mesh, ff_axes))
-    if tuple(p.we_gate.shape) != want:
-        raise ValueError(
-            f"{cfg.name}: local experts {tuple(p.we_gate.shape)}, but the "
-            f"rules' {'decode' if stationary else 'token'} layout needs "
-            f"{want}: build the model under the same (mesh, rules)")
+    w = _expert_weights(cfg, p, mesh, ep_axes, ff_axes)
     ep_rank, _ = shard_index(ep_axes, mesh)
     lo = ep_rank * e_local
     group = axis_group(mesh, ep_axes + ff_axes)
@@ -505,7 +579,7 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
         top_p, top_i, aux = _router(cfg, p, h)
         x = _Enter.apply(h.reshape(B * S, d), group)
         top_p = _Enter.apply(top_p.reshape(B * S, m.top_k), group)
-        y = _dispatch_combine(cfg, p, x, top_p, top_i.reshape(-1, m.top_k),
+        y = _dispatch_combine(cfg, w, x, top_p, top_i.reshape(-1, m.top_k),
                               lo)
         y = _Leave.apply(y, group).reshape(B, S, d)
         n_batch = axes_size(mesh, batch_axes)
@@ -522,12 +596,12 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
         row, n = shard_index(batch_axes, mesh)
         full = h.new_zeros((n * B, d))
         full[row * B:(row + 1) * B] = h[:, 0]
-        hf = _all_reduce(full, axis_group(mesh, batch_axes))
+        hf = all_reduce(full, axis_group(mesh, batch_axes))
     else:
         row, hf = 0, h[:, 0]
     top_p, top_i, aux = _router(cfg, p, hf)
-    y = _all_reduce(_dispatch_combine(cfg, p, hf, top_p, top_i, lo), group)
-    aux = _all_reduce(aux, group) / axes_size(mesh, ep_axes + ff_axes)
+    y = all_reduce(_dispatch_combine(cfg, w, hf, top_p, top_i, lo), group)
+    aux = all_reduce(aux, group) / axes_size(mesh, ep_axes + ff_axes)
     return y[row * B:(row + 1) * B, None], aux
 
 
@@ -547,7 +621,12 @@ def apply_moe_ffn(cfg: ModelConfig, p, x):
     if use_ep:
         y, aux = _moe_ep_path(cfg, p, h, mesh, ep_axes)
     else:
-        top_p, top_i, aux = _router(cfg, p, h)
+        # over the batch's shards the reference's aux is the whole batch's
+        # (its dense path is not under ``shard_map``)
+        b_axes = _batch_axes(mesh, rules) if mesh is not None else ()
+        n = axes_size(mesh, b_axes) if b_axes else 1
+        top_p, top_i, aux = _router(
+            cfg, p, h, (axis_group(mesh, b_axes), n) if n > 1 else None)
         y = _moe_dense_path(cfg, p, h, top_p, top_i)
     if m.num_shared:
         y = y + (_act(h @ p.ws_gate, cfg.act) * (h @ p.ws_up)) @ p.ws_down
@@ -570,6 +649,16 @@ def _mamba_ssm_params(cfg: ModelConfig, p, xc):
     Bm = x_dbl[..., dtr:dtr + mc.d_state].float()
     Cm = x_dbl[..., dtr + mc.d_state:].float()
     return dt.float(), Bm, Cm
+
+
+def _ssm_step(hs, xs, A):
+    """One token of the selective scan: hs (B, di, ds) and the token's
+    (B, 1, .) dt, B, x and C -> (hs, y (B, 1, di))."""
+    dt_t, b_t, x_t, c_t = (x[:, 0] for x in xs)
+    dt_t = dt_t[:, :, None]                              # (B, di, 1)
+    hs = torch.exp(dt_t * A[None]) * hs + dt_t * b_t[:, None, :] \
+        * x_t[:, :, None]
+    return hs, torch.einsum("bds,bs->bd", hs, c_t)[:, None]
 
 
 def apply_mamba(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
@@ -602,13 +691,8 @@ def apply_mamba(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
         loc = (ctx.lengths - ctx.positions[:, 0]).clamp(0, S).long()
         rows = loc[:, None] + torch.arange(K - 1, device=x.device)[None]
         conv1 = xp[torch.arange(B, device=x.device)[:, None], rows]
-    ys = []
-    for t in range(S):
-        dt_t = dt[:, t, :, None]                         # (B, di, 1)
-        hs = (torch.exp(dt_t * A[None]) * hs
-              + dt_t * Bm[:, t, None, :] * xcf[:, t, :, None])
-        ys.append(torch.einsum("bds,bs->bd", hs, Cm[:, t]))
-    y = torch.stack(ys, dim=1) + xcf * p.D.float()
+    hs, y = scan(_ssm_step, hs, (dt, Bm, xcf, Cm), S, consts=(A,))
+    y = y + xcf * p.D.float()
     out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
     if state is not None:
         state["ssm"].copy_(hs)

@@ -182,11 +182,14 @@ _FFNS = {"dense": _dense_ffn_leaves, "moe": _moe_ffn_leaves,
 
 
 class _Leaves(nn.Module):
-    """A module whose parameters are the named leaves, uninitialised."""
+    """A module whose parameters are the named leaves, uninitialised.
+    ``shard_rules`` is the rules table its leaves were cut to one rank's
+    shards under, or None (whole)."""
 
     def __init__(self, leaves: dict[str, Leaf], dtype: torch.dtype, device):
         super().__init__()
         self.leaves = leaves
+        self.shard_rules: Optional[dict] = None
         for name, lf in leaves.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(lf.shape, device=device,
@@ -259,6 +262,20 @@ def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
             for n, lf in mod.leaves.items()}
 
 
+def built_axes(mod: nn.Module, name: str, mesh) -> Optional[tuple]:
+    """For each dim of leaf `name` of `mod`, the mesh axes that split it as
+    the model was built (the module's ``shard_rules``), or None where the
+    module was built whole."""
+    rules = getattr(mod, "shard_rules", None)
+    if rules is None:
+        return None
+    lf = mod.leaves[name]
+    spec = logical_to_pspec(lf.axes, rules, lf.shape, mesh)
+    spec = spec + (None,) * (len(lf.shape) - len(spec))
+    return tuple(() if e is None else ((e,) if isinstance(e, str)
+                                       else tuple(e)) for e in spec)
+
+
 def _leaf_values(lf: Leaf, generator, device) -> torch.Tensor:
     """One leaf's seeded values, whole, in f32; only the fan-in and embed
     tags draw from `generator`."""
@@ -299,7 +316,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     With a DeviceMesh `mesh` and a rules table, the model holds only this
     rank's shard of each leaf (``sharding.logical_to_pspec`` of its axes),
     with the whole model's values: each leaf is drawn whole, cut and
-    freed, so at most one leaf is ever whole on the device."""
+    freed, so at most one leaf is ever whole on the device; every module
+    keeps `rules` as its ``shard_rules``."""
     model = Transformer(cfg, device if mesh is None else "meta")
     for _, mod in _leaf_modules(model):
         for name, lf in mod.leaves.items():
@@ -311,6 +329,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 _set_leaf(mod, name, values[cut].to(getattr(mod, name).dtype,
                                                     copy=True))
             del values
+    return _built_under(model, mesh, rules)
+
+
+def _built_under(model: Transformer, mesh, rules) -> Transformer:
+    """Each module keeps the rules its leaves were cut under."""
+    if mesh is not None:
+        for _, mod in _leaf_modules(model):
+            mod.shard_rules = dict(rules)
     return model
 
 
@@ -413,7 +439,7 @@ def from_jax_params(cfg: ModelConfig, tree, device="cuda", mesh=None,
                 dtype = getattr(mod, name).dtype
                 _set_leaf(mod, name, _from_numpy(np.asarray(a)[cut]).to(
                     device=device, dtype=dtype))
-    return model
+    return _built_under(model, mesh, rules)
 
 
 def _layer_state_leaves(cfg: ModelConfig, spec: LayerSpec, batch: int,

@@ -15,8 +15,8 @@ the caller enables grad and the leaves require it (``training``).
         -> (logits (B, S, V) f32, aux)
     prefill(cfg, params, state, tokens, lengths, image_embeds=None,
             start=None) -> (last_logits (B, V) f32, state)
-    decode_step(cfg, params, state, last_tokens, cur_lens)
-        -> (logits (B, V) f32, state)
+    decode_step(cfg, params, state, last_tokens, cur_lens,
+                plain_kernels=False) -> (logits (B, V) f32, state)
     greedy_generate(cfg, params, tokens, lengths, max_new,
                     image_embeds=None) -> (B, max_new)
 """
@@ -79,19 +79,31 @@ def _unembed(cfg: ModelConfig, params: Transformer, x):
     return ops.softcap(logits, cfg.logit_softcap)
 
 
+def _apply_layers(cfg: ModelConfig, layers, x, aux, states, ctx: ApplyCtx):
+    """`layers` in order from (x, aux): (x, aux plus their MoE aux)."""
+    for layer, st in zip(layers, states):
+        x, a = _apply_layer(cfg, layer, x, st, ctx)
+        aux = aux + a
+    return x, aux
+
+
 def _backbone(cfg: ModelConfig, params: Transformer, x, state,
               ctx: ApplyCtx, remat: bool = False):
-    """Every layer in order.  With `remat` each layer runs under activation
-    checkpointing: its backward recomputes it from its input.  Returns (x,
-    the summed MoE aux loss)."""
-    aux = 0.0
-    for layer, st in zip(params.layers, state):
+    """Every layer in order: the ``first_k_dense`` prefix, then the blocks
+    of the repeated pattern.  With `remat` each block runs under activation
+    checkpointing, as the reference's ``jax.checkpoint`` of its scanned
+    block body (the prefix is not checkpointed there either): its backward
+    recomputes the block from its input.  Returns (x, the summed MoE aux
+    loss)."""
+    k, P = cfg.first_k_dense, len(cfg.block_pattern)
+    layers = list(params.layers)
+    x, aux = _apply_layers(cfg, layers[:k], x, 0.0, state[:k], ctx)
+    for b in range(k, len(layers), P):
+        run = (cfg, layers[b:b + P], x, aux, state[b:b + P], ctx)
         if remat:
-            x, a = checkpoint(_apply_layer, cfg, layer, x, st, ctx,
-                              use_reentrant=False)
+            x, aux = checkpoint(_apply_layers, *run, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, layer, x, st, ctx)
-        aux = aux + a
+            x, aux = _apply_layers(*run)
     return x, aux
 
 
@@ -103,8 +115,8 @@ def forward_train(cfg: ModelConfig, params: Transformer, tokens,
     at or past each row's valid length.  Attention goes through the prefill
     kernel at offset 0 and RWKV-6 through the WKV6 kernel (on the CPU their
     plain versions), both differentiable; Mamba and RWKV-6 layers start
-    from a zero state and write none.  `remat` checkpoints each layer (the
-    reference's ``jax.checkpoint`` over each scanned block);
+    from a zero state and write none.  `remat` checkpoints each block of
+    the repeated pattern (``_backbone``);
     `plain_kernels` runs the plain versions in place of the kernels, as
     ``prefill``'s does.  Differentiable where the caller enables grad.
     Returns (logits (B, S, V) f32, aux), aux the MoE layers' summed
@@ -164,14 +176,16 @@ def prefill(cfg: ModelConfig, params: Transformer, state, tokens, lengths,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, state, last_tokens,
-                cur_lens):
+                cur_lens, plain_kernels: bool = False):
     """One autoregressive step against the cache.
 
     last_tokens: (B,) ints; cur_lens: (B,) tokens already cached (host).
+    `plain_kernels` as ``prefill``'s.
     Returns (logits (B,V), state)."""
     dev = params.device
     tokens = _tokens(last_tokens, dev)[:, None]
-    ctx = _ctx("decode", _host_ints(cur_lens), 1, dev)
+    ctx = _ctx("decode", _host_ints(cur_lens), 1, dev,
+               plain_kernels=plain_kernels)
     x, _ = _backbone(cfg, params, _embed(cfg, params, tokens), state, ctx)
     return _unembed(cfg, params, x)[:, 0], state
 

@@ -247,3 +247,27 @@ def axis_group(mesh, axes: tuple[str, ...]):
             if me in row:
                 _groups[key] = (mesh, g)
     return _groups[key][1]
+
+
+def all_reduce(x, group):
+    """`x` summed over `group`, in a new tensor where `x` is not
+    contiguous (else in place)."""
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def all_gather(x, group, n):
+    """(n, *x.shape): the group's shards of `x`, in its rank order (gloo
+    takes them concatenated along dim 0)."""
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out.unflatten(0, (n, x.shape[0]))
+
+
+def reduce_scatter(parts, group):
+    """parts (n, ...) summed over the group; this rank keeps its part."""
+    out = parts.new_empty(parts.shape[1:])
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1).contiguous(),
+                               group=group)
+    return out

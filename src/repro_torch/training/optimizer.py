@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.params import DTYPES, reference_paths
+from repro_torch.sharding import all_reduce
 
 
 class AdamWState(NamedTuple):
@@ -109,12 +110,26 @@ def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
     return AdamWState(step=torch.zeros((), dtype=torch.int32), m=m, v=v)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, groups=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32: `tree` a dict of
-    tensors or a module's parameters."""
-    leaves = tree.values() if isinstance(tree, dict) else tree.parameters()
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+    tensors or a module's parameters.  `groups` maps the name of each leaf
+    that this rank holds one shard of to the process group of the ranks
+    that hold its shards: the squares of the leaves of one group are
+    summed over it, in one all-reduce (``sharding.all_reduce``); every
+    other leaf is whole on each rank and counted once."""
+    named = tree.items() if isinstance(tree, dict) \
+        else tree.named_parameters()
+    groups = groups or {}
+    total, by_group = 0, {}
+    for name, x in named:
+        sq = torch.sum(torch.square(x.float()))
+        if name in groups:
+            by_group.setdefault(groups[name], []).append(sq)
+        else:
+            total = total + sq
+    for group, sqs in by_group.items():
+        total = total + all_reduce(torch.stack(sqs).sum(), group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -146,12 +161,15 @@ def _update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
     p.copy_(p.float() - lr * delta)
 
 
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                 norm_groups=None):
     """Returns (params, new_state, metrics): `params` and the state's
     moments changed in place.  `grads` maps each of the parameters' names
     (a module's ``named_parameters``, or the dict's keys) to its
-    gradient."""
-    gnorm = global_norm(grads)
+    gradient; a sharded leaf's gradient is this rank's shard, and
+    `norm_groups` (``global_norm``'s `groups`) says where its other shards
+    are, so that the clip norm is the whole tree's."""
+    gnorm = global_norm(grads, norm_groups)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else torch.ones(())
     step = state.step + 1

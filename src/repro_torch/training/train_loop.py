@@ -8,6 +8,19 @@ its backward, ``kernels/ops.py``), then AdamW in place.  No ``jax.jit``
 here, and no ``torch.compile``: the step runs eagerly.  The step and the
 loop run on the device they are given, "cuda" unless the caller passes
 "cpu", and refuse parameters on another.
+
+Under ``sharding.axis_rules(rules, mesh)`` the step is the reference's
+step of the global batch, which XLA's SPMD partitioner gives it under
+``jit`` with shardings: each rank holds its shard of the batch over the
+rules' "batch" axes and its shard of each leaf as the model was built
+(``init_params(..., mesh, rules)``).  Each rank differentiates its share
+of the global mean loss (its local mean CE over the number of batch
+shards; the MoE aux already carries its own share, ``models.ops._AuxMean``
+on the expert-parallel path and ``_SumShards`` on the dense one), each
+leaf's gradient is summed over the batch axes that do not split the leaf,
+and the clip norm sums each sharded leaf's squares over the ranks that
+hold its shards; all through ``sharding.all_reduce``.  The clip and the
+update are the single-device ones.
 """
 from __future__ import annotations
 
@@ -19,6 +32,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward_train, init_params
+from repro_torch.models.params import _leaf_modules, _prefix, built_axes
+from repro_torch.sharding import (all_reduce, axes_size, axis_group,
+                                  current_mesh, current_rules, mesh_axes)
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update)
 
@@ -44,27 +60,81 @@ def _check_device(params, device):
                          f"runs on {device}")
 
 
+@dataclass
+class _DataParallel:
+    """How a step under a mesh makes the global batch's gradient: the
+    number of batch shards and their group, and for each leaf's name the
+    group its gradient is summed over and the group of the ranks holding
+    its shards (for the clip norm)."""
+    n_batch: int
+    batch: object
+    reduce: dict
+    norm: dict
+
+
+def _data_parallel(params) -> Optional[_DataParallel]:
+    """The active (mesh, rules)'s `_DataParallel` for `params`, or None
+    with no mesh.  Only mesh axes of size > 1 count."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    sizes = mesh_axes(mesh)
+    b_axes = tuple(a for a in (current_rules() or {}).get("batch", ())
+                   if sizes.get(a, 1) > 1)
+    reduce, norm = {}, {}
+    for i, mod in _leaf_modules(params):
+        prefix = _prefix(i)
+        for name in mod.leaves:
+            split = {a for dim in built_axes(mod, name, mesh) or ()
+                     for a in dim if sizes[a] > 1}
+            over = tuple(a for a in b_axes if a not in split)
+            if over:
+                reduce[prefix + name] = axis_group(mesh, over)
+            if split:
+                norm[prefix + name] = axis_group(
+                    mesh, tuple(a for a in sizes if a in split))
+    return _DataParallel(axes_size(mesh, b_axes),
+                         axis_group(mesh, b_axes) if b_axes else None,
+                         reduce, norm)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    remat: bool = False, device="cuda") -> Callable:
+                    remat: bool = False, device="cuda",
+                    plain_kernels: bool = False) -> Callable:
     """step(params, opt, tokens, labels, image_embeds=None) -> (params,
     opt, metrics {"loss", "ce", "aux", "grad_norm", "lr"}).  The step
     turns ``requires_grad`` on for every leaf of `params` and updates them
     in place; the update runs in a profiler range named "adamw_update", so
-    that a profile of the step can tell its device time apart."""
+    that a profile of the step can tell its device time apart.  Under a
+    mesh (module docstring) it steps on the global batch, and its metrics
+    are the global batch's.  `plain_kernels` as ``lm_loss``'s."""
     def step(params, opt: AdamWState, tokens, labels, image_embeds=None):
         _check_device(params, device)
         params.requires_grad_(True)
         named = dict(params.named_parameters())
+        dp = _data_parallel(params)
         loss, parts = lm_loss(cfg, params, tokens, labels, image_embeds,
-                              remat=remat)
+                              remat=remat, plain_kernels=plain_kernels)
+        ce, aux = parts["ce"], parts["aux"]
+        if dp is not None:
+            # this rank's share of the global mean; aux carries its own
+            loss = ce / dp.n_batch + aux
         grads = dict(zip(named, torch.autograd.grad(
             loss, list(named.values()), allow_unused=True,
             materialize_grads=True)))
+        if dp is not None:
+            for name, group in dp.reduce.items():
+                grads[name] = all_reduce(grads[name], group)
+            ce = ce.detach()
+            if dp.batch is not None:
+                ce = all_reduce(ce, dp.batch) / dp.n_batch
+            loss = ce + aux
         with torch.profiler.record_function("adamw_update"):
-            params, opt, om = adamw_update(opt_cfg, grads, opt, params)
+            params, opt, om = adamw_update(opt_cfg, grads, opt, params,
+                                           None if dp is None else dp.norm)
         del grads
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "aux": parts["aux"].detach(), **om}
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "aux": aux.detach(), **om}
         return params, opt, metrics
 
     return step

@@ -10,7 +10,11 @@
   ``shard_map`` on 8 host devices, in one JAX subprocess, at a capacity
   factor where pairs are dropped, for S > 1 (tokens over "data") and the
   weight-stationary S == 1 (expert d_ff over "data"): outputs and aux
-  within 1e-5 (f32).
+  within 1e-5 (f32);
+* the single-process step of the whole batch: ``make_train_step`` under
+  the mesh (Kimi K2 SMOKE on the EP path, built with expert d_ff over
+  "data", and on the dense MoE path; a dense SMOKE config) reduces its
+  gradients and clip norm to the global batch's (ROADMAP C6).
 
 One world of ranks (``torch.multiprocessing``, spawn, a FileStore in a
 temp dir) and the JAX subprocess run once for the module, side by side;
@@ -113,6 +117,14 @@ with axis_rules(rules, mesh), compat_set_mesh(mesh):
     ga_p, ga_x = jax.jit(jax.grad(lambda p, x: ops.apply_moe_ffn(
         cfg, p, x)[1], argnums=(0, 1)))(p, x)
 res["ga_router"], res["ga_x"] = np.asarray(ga_p["router"]), np.asarray(ga_x)
+# the dense path under the mesh, the batch over "data": its aux and the
+# router's and the input's gradients of it
+rules = {"batch": ("data",), "experts": (), "expert_ff": ()}
+with axis_rules(rules, mesh), compat_set_mesh(mesh):
+    aux_fn = lambda p, x: ops.apply_moe_ffn(cfg, p, x)[1]
+    res["aux_dense"] = np.asarray(jax.jit(aux_fn)(p, x))
+    gd_p, gd_x = jax.jit(jax.grad(aux_fn, argnums=(0, 1)))(p, x)
+res["gd_router"], res["gd_x"] = np.asarray(gd_p["router"]), np.asarray(gd_x)
 for k in p:
     res[f"g_{k}"] = np.asarray(gp[k])
     res[f"hazard_{k}"] = np.abs(np.asarray(ep_p[k]) - np.asarray(dn_p[k])
@@ -216,6 +228,17 @@ def _rank_main(rank, tmpdir):
         for n, q in vars(p).items():
             dist.all_reduce(q.grad, group=mesh.get_group("data"))
             out[f"g_{n}"] = q.grad
+        # the dense path's aux over the batch's shards, and its router's
+        # (summed over "data") and input's gradients
+        p = _layer(cfg, z, mesh, DENSE_MOE)
+        x = x.detach().requires_grad_(True)
+        p.router.requires_grad_(True)
+        with axis_rules(DENSE_MOE, mesh):
+            _, aux = tops.apply_moe_ffn(cfg, p, x)
+            gd = torch.autograd.grad(aux, (p.router, x))
+        dist.all_reduce(gd[0], group=mesh.get_group("data"))
+        out["aux_dense"] = aux.detach()
+        out["gd_router"], out["gd_x"] = gd
 
         rules = port_rules({"batch": ("data",), "experts": ("model",),
                             "heads": ("model",), "expert_ff": ()})
@@ -243,6 +266,7 @@ def _rank_main(rank, tmpdir):
         with axis_rules(rules, mesh), torch.no_grad():
             out["logits_cf01"], _ = tm.forward_train(cfg, model, toks)
         out["dropped_cf01"] = torch.as_tensor(tops.EP_PAIRS["dropped"])
+        out.update(_sharded_train(mesh))
         torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -280,18 +304,94 @@ def _serve_and_build(mesh):
                 models[kind].named_parameters())[n], want) \
                 and torch.equal(t, want)
     toks, steps = _serve_inputs(cfg)
-    with axis_rules(rules["prefill"], mesh), torch.no_grad():
-        logits, state = tm.prefill(cfg, models["prefill"], tm.init_state(
-            cfg, B, MAX_LEN, "cpu"), toks, LENGTHS)
-    out["serve"] = [logits]
-    state = tm.params.shard_state(cfg, state, mesh, rules["decode"])
-    rows = _batch_rows(mesh, B)
-    with axis_rules(rules["decode"], mesh), torch.no_grad():
-        for t in range(steps.shape[0]):
-            logits, state = tm.decode_step(
-                cfg, models["decode"], state, steps[t][rows],
-                np.array(LENGTHS)[rows] + t)
-            out["serve"].append(logits)
+    # the same two layouts from models built under the other one's expert
+    # d_ff: the prefill's weights split over "data" (gathered), the
+    # decode's whole (each rank cuts its d_ff)
+    other = {k: tm.init_params(cfg, gen.manual_seed(0), "cpu", mesh, {
+        **rl, "expert_ff": () if k == "decode" else ("data",)})
+        for k, rl in rules.items()}
+    for key, built in (("serve", models), ("serve_resharded", other)):
+        with axis_rules(rules["prefill"], mesh), torch.no_grad():
+            logits, state = tm.prefill(cfg, built["prefill"], tm.init_state(
+                cfg, B, MAX_LEN, "cpu"), toks, LENGTHS)
+        out[key] = [logits]
+        state = tm.params.shard_state(cfg, state, mesh, rules["decode"])
+        rows = _batch_rows(mesh, B)
+        with axis_rules(rules["decode"], mesh), torch.no_grad():
+            for t in range(steps.shape[0]):
+                logits, state = tm.decode_step(
+                    cfg, built["decode"], state, steps[t][rows],
+                    np.array(LENGTHS)[rows] + t)
+                out[key].append(logits)
+    return out
+
+
+#: the train step under the mesh, in f32: Kimi K2 SMOKE at capacity
+#: factor 100 with its experts over "model" ("ep"), built with their d_ff
+#: over "data" too as the param rules' FSDP builds them ("fsdp": gathered
+#: forward, reduce-scattered backward), and on the dense MoE path
+#: ("dense": no "experts" axis); and a dense SMOKE config.  Each case:
+#: (arch, the rules it is built under, the rules it runs under)
+TRAIN_RULES = {"batch": ("data",), "experts": ("model",), "expert_ff": ()}
+DENSE_MOE = {"batch": ("data",), "experts": (), "expert_ff": ()}
+TRAIN_CASES = {
+    "ep": ("kimi_k2_1t_a32b", TRAIN_RULES, TRAIN_RULES),
+    "fsdp": ("kimi_k2_1t_a32b", {**TRAIN_RULES, "expert_ff": ("data",)},
+             TRAIN_RULES),
+    "dense": ("kimi_k2_1t_a32b", DENSE_MOE, DENSE_MOE),
+    "llama": ("llama31_8b", TRAIN_RULES, TRAIN_RULES),
+}
+
+
+def _train_cfg(arch):
+    if arch == ARCH:
+        return _moe_cfg(100.0)
+    return get_config(arch, smoke=True).replace(dtype="float32",
+                                                param_dtype="float32")
+
+
+def _train_opt():
+    from repro_torch.training import AdamWConfig
+    return AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=10)
+
+
+def _train_batch(cfg):
+    rng = np.random.RandomState(4)
+    return (torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))),
+            torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))))
+
+
+def _sharded_train(mesh):
+    """One ``make_train_step`` step of each of TRAIN_CASES on this rank's
+    rows under the mesh: the gradients the step hands to
+    ``adamw_update`` (its reduced ones), the metrics and the updated
+    leaves."""
+    from repro_torch.launch.mesh import port_rules
+    from repro_torch.training import adamw_init, make_train_step, train_loop
+    out = {}
+    for case, (arch, built, rules) in TRAIN_CASES.items():
+        cfg = _train_cfg(arch)
+        rules = port_rules(rules)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh, port_rules(built))
+        opt = adamw_init(model, _train_opt())
+        step = make_train_step(cfg, _train_opt(), device="cpu")
+        grads, update = {}, train_loop.adamw_update
+
+        def spy(opt_cfg, g, *args, **kw):
+            grads.update({n: x.clone() for n, x in g.items()})
+            return update(opt_cfg, g, *args, **kw)
+        toks, labels = (x[_batch_rows(mesh, B)] for x in _train_batch(cfg))
+        train_loop.adamw_update = spy
+        try:
+            with axis_rules(rules, mesh):
+                model, opt, m = step(model, opt, toks, labels)
+        finally:
+            train_loop.adamw_update = update
+        out[f"train.{case}"] = {
+            "grads": grads, "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "params": {n: q.detach().clone()
+                       for n, q in model.named_parameters()}}
     return out
 
 
@@ -377,6 +477,20 @@ def test_prefill_then_weight_stationary_decode_matches_dense(world):
         for got, w in zip(out["serve"][1:], want[1:]):
             np.testing.assert_allclose(got, w[_rows(B, d)],
                                        atol=NO_DROP_TOL, rtol=NO_DROP_TOL)
+
+
+def test_expert_weights_resharded_from_their_build(world):
+    """The same prefill and decode steps from models built under the other
+    layout's expert d_ff (the prefill's split over "data", as the param
+    rules' FSDP builds them, and gathered; the decode's whole, and cut to
+    the rank's d_ff): each rank's logits equal those of the models built
+    in the layout they run in, within 1e-5 (f32; the same products, the
+    same partial sums)."""
+    _, ranks, _ = world
+    for out in ranks:
+        for got, want in zip(out["serve_resharded"], out["serve"]):
+            np.testing.assert_allclose(got, want, atol=REF_TOL,
+                                       rtol=REF_TOL)
 
 
 def test_sharded_builds_hold_the_whole_models_values(world):
@@ -483,6 +597,33 @@ def test_layer_gradients_match_reference_ep_path(world):
             assert err <= GRAD_TOL * np.abs(g).max(), (n, d, m, err)
 
 
+def test_dense_path_aux_is_the_whole_batchs(world):
+    """Under the mesh with the batch over "data" and no "experts" axis, the
+    dense path's aux is the reference's (jitted under the same mesh and
+    rules): the Switch loss of the whole batch, not the mean of the
+    shards' losses, which differs from it by far more than the tolerance.
+    Its gradients agree too: the router's, summed over "data", and the
+    input's rows of this rank's shard, within 2e-4 of each one's
+    largest."""
+    jax_out, ranks, coords = world
+    cfg = _moe_cfg(DROP_CF)
+    z = _layer_inputs()
+    router = types.SimpleNamespace(router=torch.from_numpy(z["p_router"]))
+    x = torch.from_numpy(z["x_token"])
+    h = tops.rmsnorm(x, torch.from_numpy(z["p_ln2"]), cfg.norm_plus_one)
+    shard_mean = sum(tops._router(cfg, router, h[_rows(B, d)])[2]
+                     for d in range(MESH[0])) / MESH[0]
+    want = float(jax_out["aux_dense"])
+    assert abs(float(shard_mean) - want) > 100 * REF_TOL * abs(want)
+    for out, (d, m) in zip(ranks, coords):
+        np.testing.assert_allclose(float(out["aux_dense"]), want,
+                                   rtol=REF_TOL)
+        for n, rows in (("router", slice(None)), ("x", _rows(B, d))):
+            g = jax_out[f"gd_{n}"]
+            err = np.abs(out[f"gd_{n}"].numpy() - g[rows]).max()
+            assert err <= GRAD_TOL * np.abs(g).max(), (n, d, m, err)
+
+
 def test_reference_ep_gradients_equal_its_dense_ones(world):
     """The reference side: without drops, ``jax.grad`` through its
     ``shard_map`` EP path (``check_vma=False``) gives the dense path's
@@ -527,3 +668,75 @@ def test_router_aux_loss_increases_with_imbalance():
         np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
         auxes.append(float(aux))
     assert auxes[1] > auxes[0]
+
+
+@pytest.fixture(scope="module")
+def train_reference():
+    """The single-process step of the whole batch for each of TRAIN_CASES:
+    the gradients of the global objective, then ``adamw_update``: its grad
+    norm, loss and updated leaves.  The objective is the whole batch's
+    mean CE plus the reference's aux under the mesh: on the EP path
+    ("ep", "fsdp") the mean of the two batch shards' aux losses (its
+    ``shard_map`` takes their ``pmean``), on the dense path ("dense") the
+    whole batch's aux (no ``shard_map`` there); Llama has none."""
+    from repro_torch.training import adamw_init, adamw_update, lm_loss
+    out = {}
+    for case, (arch, _, rules) in TRAIN_CASES.items():
+        cfg = _train_cfg(arch)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        opt = adamw_init(model, _train_opt())
+        toks, labels = _train_batch(cfg)
+        model.requires_grad_(True)
+        _, parts = lm_loss(cfg, model, toks, labels)
+        aux = parts["aux"]
+        if rules["experts"]:
+            per = B // MESH[0]
+            aux = sum(lm_loss(cfg, model, toks[i * per:(i + 1) * per],
+                              labels[i * per:(i + 1) * per])[1]["aux"]
+                      for i in range(MESH[0])) / MESH[0]
+        loss = parts["ce"] + aux
+        named = dict(model.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()), allow_unused=True,
+            materialize_grads=True)))
+        _, _, m = adamw_update(_train_opt(), grads, opt, model)
+        out[case] = (cfg, grads, loss.detach(), m["grad_norm"],
+                     {n: q.detach().clone() for n, q in named.items()})
+    return out
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_sharded_train_step_is_the_global_batch_step(world, train_reference,
+                                                     case):
+    """``make_train_step`` under the mesh (2 batch shards x 4 EP ranks)
+    takes the single-process step of the whole batch: every leaf's reduced
+    gradient (its shard, as the model was built, for an expert leaf)
+    within 2e-4 of the leaf's largest |gradient|, the loss and grad norm
+    within 1e-5 relative, and the updated leaves.  The first AdamW step
+    moves an element by lr g / (|g| + eps) (plus the decay, the same on
+    both sides): where |g| is at least 1e-2 of the leaf's largest, the
+    gradients' 2e-4 cannot change its sign and the move is lr within
+    1e-6, so the leaves agree within 1e-5 there; elsewhere a gradient
+    within the tolerance of zero may move either way, by at most 2 lr."""
+    _, ranks, _ = world
+    _, rules, _ = TRAIN_CASES[case]
+    cfg, grads, loss, gnorm, params = train_reference[case]
+    lr = float(_train_opt().lr)
+    axes = tm.params.param_axes(cfg)
+    spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
+    for r, out in enumerate(ranks):
+        got = out[f"train.{case}"]
+        np.testing.assert_allclose(got["loss"], loss, rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], gnorm, rtol=1e-5)
+        coord = dict(zip(AXES, divmod(r, MESH[1])))
+        for name, want in grads.items():
+            spec = logical_to_pspec(axes[name], rules, tuple(want.shape),
+                                    spec_mesh)
+            cut = local_slices(want.shape, spec, spec_mesh, coord)
+            scale = want.abs().max().item()
+            err = (got["grads"][name] - want[cut]).abs().max().item()
+            assert err <= GRAD_TOL * scale, (case, r, name, err, scale)
+            sure = want[cut].abs() >= 1e-2 * scale
+            moved = (got["params"][name] - params[name][cut]).abs()
+            assert (moved[sure] <= 1e-5).all(), (case, r, name)
+            assert (moved <= 2 * lr + 1e-6).all(), (case, r, name)

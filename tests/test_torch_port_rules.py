@@ -21,11 +21,13 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
-#: the control plane, both simulators, the flight recorder and the
-#: training data pipeline, copied from the reference package (the last
-#: one verbatim, numpy only): each file's text is the reference's with
-#: every ``repro`` token read as ``repro_torch``, but for these comment
-#: lines, reworded in the port so that they name no change number.
+#: the control plane, both simulators, the flight recorder, the
+#: training data pipeline and the dry-run's report, copied from the
+#: reference package (the last two verbatim, numpy or nothing but the
+#: standard library): each file's text is the reference's with every
+#: ``repro`` token read as ``repro_torch``, but for these lines, reworded
+#: in the port so that they name no change number (or, in the report's
+#: docstring, the port's module path).
 COPIED = [f"core/{n}.py" for n in (
     "__init__", "autoscaler", "convertible", "fleet", "gateway", "hardware",
     "predictor", "router", "velocity")] \
@@ -34,7 +36,10 @@ COPIED = [f"core/{n}.py" for n in (
         "runner", "traces")] \
     + [f"obs/{n}.py" for n in (
         "__init__", "__main__", "explain", "export", "metrics", "recorder")] \
-    + ["training/data.py"]
+    + ["training/data.py", "launch/roofline_report.py"]
+#: the copies whose reference is not the file of the same path under
+#: src/repro
+SOURCES = {"launch/roofline_report.py": "benchmarks/roofline_report.py"}
 REWORDED = {
     "core/router.py": [(
         "never-burst before PR 2)\n",
@@ -51,6 +56,8 @@ REWORDED = {
                           "(the pre-priority behavior)")],
     "obs/__init__.py": [("observability layer (PR 9).",
                          "observability layer.")],
+    "launch/roofline_report.py": [("python -m benchmarks.roofline_report",
+                                   "python -m repro.launch.roofline_report")],
 }
 
 
@@ -150,7 +157,7 @@ def test_copied_file_is_the_reference(rel):
     """The port's copy reads as the reference's once ``repro_torch`` is read
     as ``repro``, but for the listed rewordings; each of those is in the
     reference exactly once."""
-    want = (ROOT / "src" / "repro" / rel).read_text()
+    want = (ROOT / SOURCES.get(rel, f"src/repro/{rel}")).read_text()
     for old, new in REWORDED.get(rel, []):
         assert want.count(old) == 1, (rel, old)
         want = want.replace(old, new)
