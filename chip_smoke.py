@@ -38,7 +38,17 @@ Phases (any failure exits non-zero; nothing is skipped):
                paged kernel's at D = 256 beside SDPA on the gathered KV;
                then the two attention kernels at Qwen-2.5-32B's heads (40
                over 8, G = 5) at the main path's shapes, bf16 and f32, and
-               their times beside the bound, plain version and SDPA
+               their times beside the bound, plain version and SDPA; then
+               the decode kernel's rank-slice entry (decode_attention_
+               partial: one slice of a cache split over its positions,
+               f32 o and lse) against its plain version at Llama-3.1-8B's,
+               Gemma-2-9B's (D = 256, window 4096 starting mid-slice,
+               softcap 50) and Qwen-2.5-32B's heads, 4 slices, cur_len on a
+               slice boundary and slices with no live key, bf16 and f32
+               within 2e-5, bit-equal to itself, the slices merged against
+               the one-pass plain decode; its time on a rank's slice of
+               phase 15's cache beside the bound, the plain version and
+               SDPA over the slice
   3. serve   — Llama-3.1-8B at its published widths (random weights from a
                seed, bf16) served PD-disaggregated by PDCluster (prefiller,
                decoder, convertible decoder), then a convertible Engine
@@ -180,6 +190,29 @@ Phases (any failure exits non-zero; nothing is skipped):
                TB/s, device and wall ms against the roofline's largest
                term, the predicted peak against the allocator's; the
                attention kernels' launches on their own line
+ 15. tp      — tensor parallelism and the decode cache split over its
+               positions ("ctx"): 4 ranks started with torch.
+               multiprocessing (spawn, a FileStore) share the card, gloo
+               between them; each builds only its shard of every leaf
+               (seed 0, the whole model's values; heads, d_ff and vocab
+               over "model").  (a) Llama-3.1-8B at its published widths
+               and depth in bf16, and its first 8 layers in f32, under
+               mesh ("data", "model") = (1, 4): 4 prompts of 64-1536
+               tokens, then 8 teacher-forced decode steps with the cache
+               over "model"; (b) the cache of one 32768-token Llama-3.1-8B
+               prompt, from the single process's prefill, cut by
+               shard_state under the batch-1 rules ("ctx" over ("data",
+               "model")) on (2, 2), then 8 decode steps; (c) Qwen-2.5-32B
+               at its published widths, 16 of its 64 layers, under (1, 4)
+               (10 q and 2 kv heads a rank, G = 5, the qkv bias cut with
+               its heads).  Every rank's logits against the single
+               process's, computed before the ranks start: bf16 by phase
+               3's rule (0.05 of max |logit|, each row's argmax equal or a
+               near tie in the single process) or, where the single
+               process's plain path against its kernels is outside it
+               too, finite; f32 within 1e-3, argmaxes equal.  Each rank's
+               launches (the prefill kernel, the rank-slice decode entry),
+               peak GiB and walls; the phase's wall (not a TP speed)
 
 Phases run in this order, one after another; each frees its model before
 the next, and each one's wall time is printed as "[phase] name: s".
@@ -292,6 +325,20 @@ def decode_bound(q, k, cur, window):
     keys = float((cur - lo + 1).sum())
     ops = 4.0 * D * Hq * keys
     nbytes = e * D * (2 * B * Hq + 2 * keys * Hkv)
+    return _bound(ops, nbytes, q.dtype)
+
+
+def partial_bound(q, k, pos0, cur, window):
+    """decode_bound over one slice of the cache: its live keys read once,
+    q read and the f32 (o, lse) written once."""
+    B, Hq, D = q.shape
+    L, Hkv, e = k.shape[1], k.shape[2], q.element_size()
+    cur = np.asarray(cur)
+    hi = np.minimum(cur, pos0 + L - 1)
+    lo = np.maximum(np.maximum(cur - window + 1, 0) if window else 0, pos0)
+    keys = float(np.maximum(hi - lo + 1, 0).sum())
+    ops = 4.0 * D * Hq * keys
+    nbytes = e * D * (B * Hq + 2 * keys * Hkv) + 4 * B * Hq * (D + 1)
     return _bound(ops, nbytes, q.dtype)
 
 
@@ -675,6 +722,8 @@ def phase_parity():
     for name in rq:
         errs[f"{name}_qwen"] = eq[name]
         rows[f"{name}_qwen"] = rq[name]
+    errs["decode_attention_partial"], rows["decode_attention_partial"] = \
+        parity_partial(g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (eager {r['library_eager_ms']:.4f})"
@@ -684,6 +733,100 @@ def phase_parity():
             f"{r['bound'][0] / r['ms']:.3f} of it; plain {r['plain_ms']:.4f}"
             f" ms (eager); library {lib}")
     return errs, rows
+
+
+#: decode_attention_partial's cases: (label, whole L, slices, Hq, Hkv, D,
+#: window, softcap, cur_lens): Llama-3.1-8B's heads on phase 15 (a)'s
+#: 2048-position cache in 4 slices, cur_len on and beside a slice
+#: boundary and at 0 (slices with no live key); Gemma-2-9B's D = 256 with
+#: its 4096 window starting mid-slice and softcap 50; Qwen-2.5-32B's G = 5
+PARTIAL_PARITY = [
+    ("Llama heads L=2048 in 4 slices", 2048, 4, 32, 8, 128, 0, 0.0,
+     [511, 512, 0, 2047]),
+    ("Gemma-2-9B heads D=256 L=8192 in 4 slices, window 4096, softcap 50",
+     8192, 4, 16, 8, 256, 4096, 50.0, [8191, 5000, 3000, 100]),
+    ("Qwen-2.5-32B heads G=5 L=2048 in 4 slices", 2048, 4, 40, 8, 128, 0,
+     0.0, [2047, 1000, 513, 3]),
+]
+#: the timed slice: rank 1's of phase 15 (a)'s cache (positions 512 ..
+#: 1023 of 2048), every row with a live key there
+PARTIAL_TIMED = dict(L=512, pos0=512, cur=[2047, 1500, 700, 600])
+
+
+def parity_partial(g):
+    """decode_attention_partial (the rank-slice entry point of the decode
+    kernel) against its plain version, each slice's f32 (o, lse): within
+    2e-5 in bf16 and f32 (both sides compute in f32 from the same
+    inputs), -inf exactly where the plain version has it, bit-equal from
+    run to run; the slices merged against the one-pass plain decode on the
+    same values.  Then its time on the timed slice beside the bound, the
+    plain version and SDPA over the slice's live keys (o only: SDPA gives
+    no log-sum-exp; a yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    worst, ok = 0.0, True
+    for dt in (torch.bfloat16, torch.float32):
+        for label, L, n, Hq, Hkv, D, window, cap, curs in PARTIAL_PARITY:
+            q = _rand(g, (len(curs), Hq, D), dt)
+            k = _rand(g, (len(curs), L, Hkv, D), dt)
+            v = _rand(g, (len(curs), L, Hkv, D), dt)
+            cur = i32(curs)
+            per, parts, same, err = L // n, [], True, 0.0
+            for i in range(n):
+                ks = k[:, i * per:(i + 1) * per].contiguous()
+                vs = v[:, i * per:(i + 1) * per].contiguous()
+                o, lse = kops.decode_attention_partial(
+                    q, ks, vs, cur, i * per, window=window, softcap=cap)
+                wo, wl = ref.decode_attention_partial_ref(
+                    q, ks, vs, cur, i * per, window=window, softcap=cap)
+                live = torch.isfinite(wl)
+                ok &= bool(torch.equal(torch.isneginf(lse),
+                                       torch.isneginf(wl)))
+                ok &= close(o, wo, TOL[torch.float32]) \
+                    and close(lse[live], wl[live], TOL[torch.float32])
+                err = max(err, max_err(o, wo), max_err(lse[live], wl[live]))
+                again = kops.decode_attention_partial(
+                    q, ks, vs, cur, i * per, window=window, softcap=cap)
+                same &= bool(torch.equal(o, again[0])
+                             and torch.equal(lse, again[1]))
+                parts.append((o, lse))
+            merged = ref.merge_decode_partials(
+                torch.stack([o for o, _ in parts]),
+                torch.stack([l for _, l in parts]))
+            whole = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                             cur, window=window, softcap=cap)
+            good = close(merged, whole, TOL[torch.float32]) and same \
+                and not bool(torch.isnan(merged).any())
+            ok &= good
+            worst = max(worst, err)
+            log(f"[parity] decode_attention_partial "
+                f"{'bf16' if dt == torch.bfloat16 else 'f32'} {label} "
+                f"cur={curs}: max_abs_err {err:.3g} (o, lse; tol 2e-5), "
+                f"merged vs one-pass {max_err(merged, whole):.3g}, "
+                f"bit-equal {same}: {'ok' if good else 'FAIL'}")
+    check(ok, "decode_attention_partial parity failed")
+    L, pos0, curs = PARTIAL_TIMED["L"], PARTIAL_TIMED["pos0"], \
+        PARTIAL_TIMED["cur"]
+    bf, dev = torch.bfloat16, "cuda"
+    sets = []
+    for _ in range(n_copies(4 * L * 8 * 128 * 2 * 2)):
+        q = _rand(g, (4, 32, 128), bf)
+        k, v = _rand(g, (4, L, 8, 128), bf), _rand(g, (4, L, 8, 128), bf)
+        sets.append((q, k, v, i32(curs), pos0))
+    mask = (pos0 + torch.arange(L, device=dev))[None, :] \
+        <= torch.tensor(curs, device=dev)[:, None]
+    sdpa = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+             mask[:, None, None]) for q, k, v, _, _ in sets]
+    row = timed_row(
+        kops.decode_attention_partial, ref.decode_attention_partial_ref,
+        sets, lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), sdpa,
+        bound=partial_bound(sets[0][0], sets[0][1], pos0, curs, 0),
+        shape=f"a rank's slice: B=4 L={L} pos0={pos0} Hq=32 Hkv=8 D=128 "
+              f"bf16, cur_lens {curs}")
+    return worst, row
 
 
 def parity_head_dim_256(g):
@@ -2924,6 +3067,276 @@ def phase_ep():
 
 
 # ---------------------------------------------------------------------------
+# phase 15: tensor parallelism and the decode cache split over "ctx"
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+TP_LENGTHS = [1536, 700, 64, 1100]     # (a), (c): the prompts, padded
+TP_MAX_LEN = 2048                      # 512 positions a rank's slice
+TP_STEPS = 8                           # decode steps, teacher-forced
+TP_LONG = 32768                        # (b): one prompt
+TP_LONG_MAX = TP_LONG + 256            # 8256 positions a rank's slice
+#: (name, arch, layers or 0 for all, dtype, mesh ("data", "model"), the
+#: rules' batch): (a) Llama-3.1-8B whole in bf16 and its first 8 layers in
+#: f32, (b) the B = 1 long context, (c) Qwen-2.5-32B's first 16 of 64
+#: layers (its 40 q / 8 kv heads give each of 4 ranks 10 / 2, G = 5)
+TP_CASES = [("llama", "llama31_8b", 0, "bfloat16", (1, 4), 4),
+            ("llama_f32", "llama31_8b", 8, "float32", (1, 4), 4),
+            ("llama_long", "llama31_8b", 0, "bfloat16", (2, 2), 1),
+            ("qwen", "qwen25_32b", 16, "bfloat16", (1, 4), 4)]
+
+
+def tp_config(arch, layers, dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return cfg.replace(dtype=dtype, param_dtype=dtype)
+
+
+def tp_inputs(cfg, batch):
+    """The prompts (B, S) and lengths, and the teacher-forced decode tokens
+    (steps, B), from a seed: (a) / (c) TP_LENGTHS, (b) one prompt of
+    TP_LONG."""
+    rng = np.random.RandomState(15)
+    lens = [TP_LONG] if batch == 1 else TP_LENGTHS
+    toks = np.zeros((len(lens), max(lens)), np.int64)
+    for b, L in enumerate(lens):
+        toks[b, :L] = rng.randint(0, cfg.vocab_size, L)
+    return toks, np.array(lens), rng.randint(0, cfg.vocab_size,
+                                             (TP_STEPS, len(lens)))
+
+
+def tp_decode(cfg, model, state, steps, lens, plain=False):
+    """The teacher-forced decode steps: each step's logits on the host."""
+    from repro_torch.models import decode_step
+    out = []
+    for t in range(TP_STEPS):
+        logits, state = decode_step(cfg, model, state, steps[t], lens + t,
+                                    plain_kernels=plain)
+        out.append(logits.float().cpu())
+    return out
+
+
+def tp_reference(case, tmpdir):
+    """The single process on the same weights (seed 0), whole on the card:
+    prefill and decode steps through the kernels, and (bf16) the same
+    through the plain versions (the path's own spread in another rounding;
+    for (b) its decode steps from a copy of the prefill's cache).  (b)
+    writes its prefill's cache to `tmpdir`, whence the ranks cut it."""
+    from repro_torch.models import init_params, init_state, prefill
+    name, arch, layers, dtype, _, batch = case
+    cfg = tp_config(arch, layers, dtype)
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    toks, lens, steps = tp_inputs(cfg, batch)
+    max_len = TP_LONG_MAX if batch == 1 else TP_MAX_LEN
+    out = {}
+    logits, state = prefill(cfg, model, init_state(cfg, len(lens), max_len,
+                                                   "cuda"), toks, lens)
+    if batch == 1:
+        torch.save([{n: v.cpu() for n, v in st.items()} for st in state],
+                   f"{tmpdir}/long_state.pt")
+        spare = [{n: v.clone() for n, v in st.items()} for st in state]
+    out["logits"] = [logits.float().cpu()] + tp_decode(cfg, model, state,
+                                                       steps, lens)
+    if dtype == "bfloat16":
+        if batch == 1:
+            out["plain"] = out["logits"][:1] + tp_decode(
+                cfg, model, spare, steps, lens, plain=True)
+            del spare
+        else:
+            pl, state = prefill(cfg, model, init_state(
+                cfg, len(lens), max_len, "cuda"), toks, lens,
+                plain_kernels=True)
+            out["plain"] = [pl.float().cpu()] + tp_decode(
+                cfg, model, state, steps, lens, plain=True)
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"[tp] {name}: single process in {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def _tp_rank(rank, tmpdir, backend):
+    """One rank on the shared card, for each of TP_CASES: the model built
+    with its heads, d_ff and vocab over "model" (each leaf drawn whole,
+    cut), the cache over "ctx" (``shard_state``: for (b) of the single
+    process's prefill, read from disk), then the prefill (not (b)) and the
+    decode steps under the case's rules.  Saves what it saw."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    from repro_torch.models import init_params, init_state, prefill
+    from repro_torch.models.params import shard_state
+    from repro_torch.sharding import axis_rules
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, store=dist.FileStore(f"{tmpdir}/store", TP_RANKS),
+        rank=rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        res = []
+        meshes = {}
+        for name, arch, layers, dtype, shape, batch in TP_CASES:
+            if shape not in meshes:
+                meshes[shape] = init_device_mesh("cuda", shape,
+                                                 mesh_dim_names=("data",
+                                                                 "model"))
+            mesh = meshes[shape]
+            torch.cuda.reset_peak_memory_stats()
+            kops.reset_launches()
+            cfg = tp_config(arch, layers, dtype)
+            max_len = TP_LONG_MAX if batch == 1 else TP_MAX_LEN
+            kind = InputShape("decode", max_len, batch, "decode")
+            rules_a = port_rules(act_rules(kind, False), cfg)
+            rules_p = port_rules(param_rules(cfg, kind, False), cfg)
+            toks, lens, steps = tp_inputs(cfg, batch)
+            r = {"walls": {}}
+            t0 = t = time.perf_counter()
+            model = init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0), "cuda", mesh, rules_p)
+            r["wq"] = tuple(model.layers[0].wq.shape)
+            torch.cuda.synchronize()
+            r["walls"]["build"] = time.perf_counter() - t
+            t = time.perf_counter()
+            if batch == 1:
+                whole = torch.load(f"{tmpdir}/long_state.pt", mmap=True)
+                state = [{n: v.to("cuda") for n, v in st.items()}
+                         for st in shard_state(cfg, whole, mesh, rules_a)]
+                del whole
+                r["logits"] = []
+            else:
+                state = shard_state(cfg, init_state(cfg, len(lens), max_len,
+                                                    "cuda"), mesh, rules_a)
+            r["cache"] = tuple(state[0]["k"].shape)
+            r["walls"]["cache"] = time.perf_counter() - t
+            with axis_rules(rules_a, mesh):
+                if batch > 1:
+                    t = time.perf_counter()
+                    logits, state = prefill(cfg, model, state, toks, lens)
+                    r["logits"] = [logits.float().cpu()]
+                    r["walls"]["prefill"] = time.perf_counter() - t
+                t = time.perf_counter()
+                r["logits"] += tp_decode(cfg, model, state, steps, lens)
+                r["walls"]["decode"] = time.perf_counter() - t
+            r["launches"] = dict(kops.LAUNCHES)
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            r["wall"] = time.perf_counter() - t0
+            del model, state
+            torch.cuda.empty_cache()
+            res.append(r)
+        torch.save(res, f"{tmpdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_compare(got, want, name, what):
+    """(largest |diff| over the largest |want|, rows whose argmax agree,
+    rows, finite), logged.  A row's argmax agrees where it is `want`'s, or
+    where `want` has a near tie there: its logit at `got`'s argmax within
+    twice the row's largest |diff| of its maximum (teacher-forced rows of
+    many steps meet such ties; a rounding may pick either side)."""
+    diff = (got - want).abs()
+    share = (diff.max() / want.abs().max()).item()
+    exact = got.argmax(-1) == want.argmax(-1)
+    at = want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+    tie = ~exact & (want.max(-1).values - at <= 2 * diff.max(-1).values)
+    same = int((exact | tie).sum())
+    finite = bool(torch.isfinite(got).all())
+    log(f"[tp] {name}: {what}: max abs diff / max |logit| {share:.4g}, "
+        f"argmax equal in {int(exact.sum())} of {got.shape[0]} rows"
+        f"{f' and a near tie in {int(tie.sum())}' if tie.any() else ''}, "
+        f"finite {finite}")
+    return share, same, got.shape[0], finite
+
+
+def phase_tp():
+    """Tensor parallelism over "model" and the decode cache split over
+    "ctx" (``models.ops._apply_attn_tp``) on 4 ranks that share the one
+    card, gloo between them (NCCL refuses two ranks on one device).  This
+    phase holds the path's results, not its speed: 4 ranks on one card are
+    no TP deployment.  Returns the launches of the rank-slice decode entry
+    point (every rank's, summed) for the kernels line."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    from torch.multiprocessing.spawn import ProcessException
+    backend = "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        refs = [tp_reference(c, tmpdir) for c in TP_CASES]
+        log(f"[tp] single-process references in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t = time.perf_counter()
+        try:
+            tmp.start_processes(_tp_rank, args=(tmpdir, backend),
+                                nprocs=TP_RANKS, join=True,
+                                start_method="spawn")
+        except ProcessException as e:
+            raise PhaseFailed(f"tp: a rank failed: {e}")
+        ranks = [torch.load(f"{tmpdir}/rank{r}.pt")
+                 for r in range(TP_RANKS)]
+    log(f"[tp] backend {backend}, {TP_RANKS} ranks on one card; the ranks' "
+        f"wall {time.perf_counter() - t:.1f} s (4 ranks sharing one card: "
+        f"not a TP speed)")
+    partial = 0
+    for i, (name, arch, layers, dtype, shape, batch) in enumerate(TP_CASES):
+        rs = [r[i] for r in ranks]
+        label = (f"{arch}{f' ({layers} layers)' if layers else ''}, {dtype},"
+                 f" mesh {shape}, batch {batch}")
+        log(f"[tp] {label}: a rank's wq {rs[0]['wq']}, cache "
+            f"{rs[0]['cache']}; peak GiB by rank "
+            f"{[round(r['peak_gib'], 2) for r in rs]}")
+        for k, r in enumerate(rs):
+            log(f"[tp] {label}: rank {k} walls (s) "
+                f"{ {w: round(v, 2) for w, v in r['walls'].items()} }, "
+                f"{r['wall']:.1f} in all; launches "
+                f"{ {n: v for n, v in r['launches'].items() if v} }")
+        # every rank holds the same rows, the whole batch; (b)'s ranks
+        # decode from the single process's prefill
+        first = 1 if batch == 1 else 0
+        want = torch.cat(refs[i]["logits"][first:])
+        errs = [tp_compare(torch.cat(r["logits"]), want, label,
+                           f"rank {k} vs the single process")
+                for k, r in enumerate(rs)]
+        share = max(e[0] for e in errs)
+        agree = all(e[1] == e[2] and e[3] for e in errs)
+        if dtype == "float32":
+            check(agree and share <= 1e-3,
+                  f"{label}: f32 TP logits not within 1e-3 of the single "
+                  "process")
+        else:
+            own = tp_compare(torch.cat(refs[i]["plain"][first:]), want,
+                             label,
+                             "the single process's plain path vs its "
+                             "kernels")
+            rule = agree and share <= 0.05
+            outside = own[0] > 0.05 or own[1] < own[2]
+            log(f"[tp] {label}: phase 3's rule (0.05, same argmax) "
+                f"{'holds' if rule else 'fails'} for TP vs the single "
+                f"process; the single process against itself is "
+                f"{'outside' if outside else 'within'} it")
+            check(rule or (outside and all(e[3] for e in errs)),
+                  f"{label}: TP logits outside phase 3's rule")
+        launched = [r["launches"] for r in rs]
+        check(all(n["decode_attention_partial"] > 0 for n in launched)
+              and all(n["chunked_prefill_attention"] > 0 for n in launched
+                      if batch > 1),
+              f"{label}: a rank did not launch the prefill kernel and the "
+              "rank-slice decode entry point")
+        partial += sum(n["decode_attention_partial"] for n in launched)
+    log(f"[tp] phase wall {time.perf_counter() - t0:.1f} s (4 ranks sharing "
+        f"one card: not a TP speed)")
+    return partial
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the dry-run over the production meshes, and the counted
 # roofline held against Llama-3.1-8B's steps on the card
 # ---------------------------------------------------------------------------
@@ -3171,10 +3584,14 @@ def main() -> int:
     timed(phase_train, card)
     timed(phase_ep)
     timed(phase_roofline, card)
+    launches["decode_attention_partial"] = timed(phase_tp)
     src = {"chunked_prefill_attention":
            ("src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
             "src/repro/kernels/chunked_prefill_attention.py:37"),
            "decode_attention":
+           ("src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:30"),
+           "decode_attention_partial":
            ("src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:30"),
            "paged_decode_attention":

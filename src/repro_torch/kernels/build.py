@@ -35,6 +35,10 @@ _ARGTYPES = {
     # window, softcap, scale, split, stream
     "decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _F, _F, _I, _P],
+    # dtype, q, k, v, cur_lens, out, lse, part_o, part_ml, B, L, Hq, Hkv, D,
+    # pos0, window, softcap, scale, split, stream
+    "decode_attention_partial": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # dtype, q, pool_k, pool_v, tables, cur_lens, out, part_o, part_ml, B,
     # MB, BS, Hq, Hkv, D, scale, split, stream
     "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -43,6 +47,10 @@ _ARGTYPES = {
     "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _P],
 }
+
+#: the C entry points of each library that has more than the one of its name
+ENTRIES = {"decode_attention": ("decode_attention",
+                                "decode_attention_partial")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -106,8 +114,9 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
         cdll = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(cdll, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for entry in ENTRIES.get(name, (name,)):
+            fn = getattr(cdll, entry)
+            fn.argtypes = _ARGTYPES[entry]
+            fn.restype = ctypes.c_int
         _LIBS[name] = cdll
     return _LIBS[name]

@@ -18,6 +18,12 @@
 // and a 2048-token cache some 280 blocks carry live rows instead of 32,
 // each keeping three 16 KB tiles of cp.async loads in flight.  A second,
 // small kernel merges the splits' partials.
+//
+// decode_attention_partial runs the same kernels on one slice of a cache
+// whose positions are split across ranks (context parallelism): local row 0
+// is absolute position pos0, and it writes the slice's normalised o (f32)
+// with its log-sum-exp for the caller's merge across slices
+// (models/ops.py, kernels/ref.py merge_decode_partials).
 #include "decode_common.cuh"
 
 // Returns the cudaError_t of the launches (0 = launched), or -1 for an
@@ -47,6 +53,43 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k,
   p.P = L;
   p.MB = 0;
   p.BS = 1;
+  p.window = window;
+  p.softcap = softcap;
+  p.scale = scale;
+  p.split = split;
+  return dispatch_decode<false>(dtype, p, static_cast<cudaStream_t>(stream));
+}
+
+// A slice's partial: q (B, Hq, D), k/v (B, L, Hkv, D) holding absolute
+// positions pos0 .. pos0 + L - 1, cur_lens (B,) absolute.  Writes out (B, Hq,
+// D) f32, the output over the slice's live keys, and lse (B, Hq) f32, their
+// natural-base log-sum-exp (o = 0, lse = -inf for a row with none).  Scratch
+// and return value as decode_attention's.
+extern "C" int decode_attention_partial(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* cur_lens, void* out, void* lse, void* part_o, void* part_ml,
+    int B, int L, int Hq, int Hkv, int D, int pos0, int window, float softcap,
+    float scale, int split, void* stream) {
+  using namespace repro_torch;
+  if (pos0 < 0 || lse == nullptr) return -1;
+  DecodeParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.cur_lens = static_cast<const int*>(cur_lens);
+  p.tables = nullptr;
+  p.out = out;
+  p.lse = static_cast<float*>(lse);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_ml = static_cast<float*>(part_ml);
+  p.B = B;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.D = D;
+  p.P = L;
+  p.MB = 0;
+  p.BS = 1;
+  p.pos0 = pos0;
   p.window = window;
   p.softcap = softcap;
   p.scale = scale;

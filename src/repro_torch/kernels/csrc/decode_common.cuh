@@ -4,7 +4,10 @@
 //
 // One new query token per request attends the live positions [lo, hi] of its
 // cache: hi = min(cur_len, P - 1), lo = max(0, cur_len - window + 1) with a
-// window, else 0; P is the cache length, or MB * BS positions of pages.  Two
+// window, else 0; P is the cache length, or MB * BS positions of pages.  The
+// cache may be one slice of a longer one, whose local row 0 is absolute
+// position pos0 (0 for a whole cache): [lo, hi] is then the absolute range
+// intersected with [pos0, pos0 + P), in local rows, and may be empty.  Two
 // kernels run back to back on one stream, launched by one C call:
 //
 //  1. decode_split_kernel, grid (Hkv * gchunks, B, nsplit).  Block (h, b, s)
@@ -19,6 +22,11 @@
 //     from cur_lens (so a split that returned early is never read), by the
 //     log-sum-exp rule, in split order.  No atomics: two calls on the same
 //     inputs are bit-equal.
+//
+// With `lse` set (a slice's partial, to be merged across slices by the
+// caller) the output is f32 whatever the input type, and each (b, query head)
+// also gets lse = ln(sum of exp(score)) over its live keys, natural base; a
+// row with no live key gets o = 0 and lse = -inf.
 //
 // Inside a split: K/V tiles of TR rows stay in their input type in a ring of
 // kStages shared-memory slots, filled by 16-byte cp.async (.cg, L2 only), and
@@ -47,6 +55,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;
 constexpr int kSplitQuantum = 64;  // every split is a multiple (>= any tile)
 constexpr int kSplitMax = 2048;    // bounds the paged row table
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct DecodeParams {
   const void* q;        // (B, Hq, D)
@@ -54,12 +63,14 @@ struct DecodeParams {
   const void* v;
   const int* cur_lens;  // (B,)
   const int* tables;    // paged: (B, MB) page ids, -1 = unallocated
-  void* out;            // (B, Hq, D)
+  void* out;            // (B, Hq, D): the input type, or f32 with lse
+  float* lse;           // (B, Hq) f32, or null: a slice's partial (above)
   float* part_o;        // (B, Hq, nsplit, D)
   float* part_ml;       // (B, Hq, nsplit, 2): m, l
   int B, Hq, Hkv, D, G, gchunks;
   int P;                // positions: L, or MB * BS
   int MB, BS;
+  int pos0;             // absolute position of local row 0
   int window;
   float softcap, scale;
   int split, nsplit;
@@ -105,11 +116,27 @@ size_t smem_bytes(int split) {
   return ring_bytes<T, D, GMAX>() + (PAGED ? sizeof(int) * (size_t)split : 0);
 }
 
+// The live rows [lo, hi] of request b, local (empty when lo > hi).
 __device__ __forceinline__ void live_range(const DecodeParams& p, int b,
                                            int& lo, int& hi) {
   const int cur = p.cur_lens[b];
-  hi = min(cur, p.P - 1);
-  lo = p.window > 0 ? max(0, cur - p.window + 1) : 0;
+  hi = min(cur, p.pos0 + p.P - 1) - p.pos0;
+  lo = max(p.window > 0 ? cur - p.window + 1 : 0, p.pos0) - p.pos0;
+}
+
+// The normalised output of a (b, query head) with its m, l (log2 domain)
+// and, for a slice's partial, its natural-base lse (-inf with no live key).
+template <typename T>
+__device__ __forceinline__ void write_out(const DecodeParams& p, size_t bh,
+                                          int d, float O, float M, float Ls) {
+  const float res = O / fmaxf(Ls, 1e-30f);
+  if (p.lse == nullptr) {
+    store(static_cast<T*>(p.out) + bh * p.D + d, res);
+    return;
+  }
+  static_cast<float*>(p.out)[bh * p.D + d] = res;
+  if (d == 0)
+    p.lse[bh] = Ls > 0.f ? (M + log2f(Ls)) * kLn2 : __int_as_float(0xff800000);
 }
 
 template <typename T, int D, int GMAX, bool PAGED>
@@ -344,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     const size_t bh = (size_t)b * p.Hq + hk * p.G + g0 + g;
     if (p.nsplit == 1) {
-      store(static_cast<T*>(p.out) + bh * D + d, O / fmaxf(Ls, 1e-30f));
+      write_out<T>(p, bh, d, O, M, Ls);
     } else {
       const size_t ps = bh * p.nsplit + blockIdx.z;
       p.part_o[ps * D + d] = O;
@@ -364,22 +391,20 @@ __global__ void __launch_bounds__(kThreads)
   const int d = i % p.D, bh = i / p.D, b = bh / p.Hq;
   int lo, hi;
   live_range(p, b, lo, hi);
-  float res = 0.f;  // no live key at all: the plain version's 0
+  // no live key at all: O = Ls = 0, the plain version's 0 (and lse -inf)
+  float M = kNegInf, O = 0.f, Ls = 0.f;
   if (lo <= hi) {
     const int f = lo / p.split, e = hi / p.split;
     const float* ml = p.part_ml + (size_t)bh * p.nsplit * 2;
     const float* po = p.part_o + (size_t)bh * p.nsplit * p.D + d;
-    float M = kNegInf;
     for (int s = f; s <= e; ++s) M = fmaxf(M, ml[2 * s]);
-    float O = 0.f, Ls = 0.f;
     for (int s = f; s <= e; ++s) {
       const float c = exp2f(ml[2 * s] - M);
       Ls = fmaf(ml[2 * s + 1], c, Ls);
       O = fmaf(po[(size_t)s * p.D], c, O);
     }
-    res = O / fmaxf(Ls, 1e-30f);
   }
-  store(static_cast<T*>(p.out) + i, res);
+  write_out<T>(p, bh, d, O, M, Ls);
 }
 
 template <typename T, int D, int GMAX, bool PAGED>

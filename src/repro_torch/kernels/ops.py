@@ -7,7 +7,9 @@ tensors it is given: on the CPU it runs the plain version in
 ``kernels/ref.py``; on a CUDA device it launches the kernel, and raises if
 the kernel does not take the inputs or fails to launch.  There is no
 switch and no fallback.  ``LAUNCHES`` counts the kernel launches, so a run
-can show that it went through the kernels.
+can show that it went through the kernels.  ``decode_attention_partial``
+has no counterpart there: it is the decode kernel's entry for one rank's
+slice of a cache split over its positions (``models/ops._ctx_decode``).
 
 ``prefill_attention`` and ``wkv6_op`` are differentiable, through one
 ``torch.autograd.Function`` each (``_PrefillAttention``, ``_WKV6``), on
@@ -29,7 +31,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0, "wkv6": 0}
+            "decode_attention_partial": 0, "paged_decode_attention": 0,
+            "wkv6": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -215,6 +218,46 @@ def decode_attention_op(q, k, v, cur_lens, window: int = 0,
     _raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+def decode_attention_partial(q, k, v, cur_lens, pos0: int,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: Optional[float] = None):
+    """(B,Hq,D) single-token decode against one slice of a cache split over
+    its positions: k / v (B,L,Hkv,D) hold absolute positions pos0 .. pos0 +
+    L - 1, `cur_lens` (B,) is absolute.  Returns (o (B,Hq,D) f32, the
+    output over the slice's live keys, lse (B,Hq) f32, their natural-base
+    log-sum-exp), o = 0 and lse = -inf for a row with no live key there;
+    ``ref.merge_decode_partials`` of the slices' pairs is the whole decode.
+
+    On the card: ``decode_attention_op``'s kernels over splits of
+    ``decode_split(L, B, Hkv)`` local positions, writing the pair."""
+    if pos0 < 0:
+        raise ValueError(f"pos0 {pos0} < 0")
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial_ref(
+            q, k, v, cur_lens, pos0, window=window, softcap=softcap,
+            scale=scale)
+    B, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, L, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    _check_cuda(q, k, v)
+    scale = scale if scale is not None else D ** -0.5
+    cur_lens = _int32(cur_lens, q.device)
+    split, nsplit = decode_split(L, B, Hkv)
+    out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
+    fn = build.lib("decode_attention").decode_attention_partial
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             cur_lens.data_ptr(), out.data_ptr(), lse.data_ptr(), part_o,
+             part_ml, B, L, Hq, Hkv, D, int(pos0), int(window),
+             float(softcap), float(scale), split, _stream(q))
+    _raise_on(err, "decode_attention_partial")
+    LAUNCHES["decode_attention_partial"] += 1
+    return out, lse
 
 
 def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,

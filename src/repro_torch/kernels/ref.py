@@ -8,7 +8,11 @@ one is the batched form of ``serving/paged.py``'s oracle; the two
 ``*_split_ref`` functions compute the same decode attention in the split-KV
 kernels' two passes, for the tests.  ``wkv6_ref`` is
 the sequential RWKV-6 oracle and ``wkv6_chunked`` the reference model's
-chunked form of it (``models/ops.py: rwkv_wkv_chunked``).  Two more compute
+chunked form of it (``models/ops.py: rwkv_wkv_chunked``).
+``decode_attention_partial_ref`` is the decode over one slice of a cache
+split over its positions (its output and log-sum-exp), and
+``merge_decode_partials`` merges the slices, on every device (the merge
+is not a kernel's body).  Two more compute
 a function here with a kernel's own arithmetic, for the tests:
 ``chunked_prefill_attention_split_p_ref`` (the bf16 tensor-core kernel's
 tiles and P rounding) and ``wkv6_segmented`` (the WKV6 kernel's three
@@ -259,6 +263,59 @@ def decode_attention_split_ref(q, k, v, cur_lens, split: int,
     live = (pos >= lo[:, None]) & (pos <= hi[:, None])
     vf = torch.where(live[:, :, None, None], v.float(), 0.0)
     return _split_merge(s, vf, live, lo, hi, split, q.dtype)
+
+
+def decode_attention_partial_ref(
+        q: torch.Tensor,            # (B, Hq, D) — the single new token
+        k: torch.Tensor,            # (B, L, Hkv, D) — positions pos0 ..
+        v: torch.Tensor,            #   pos0 + L - 1 of the whole cache
+        cur_lens: torch.Tensor,     # (B,) absolute; new token at cur_lens
+        pos0: int,
+        window: int = 0,
+        softcap: float = 0.0,
+        scale: Optional[float] = None):
+    """``decode_attention_ref`` over one slice of the cache's positions,
+    [pos0, pos0 + L): the keys live in the whole cache ([max(0, cur -
+    window + 1), cur]) that fall in the slice.  Returns (o (B, Hq, D) f32,
+    the normalised output over those keys; lse (B, Hq) f32, the natural
+    log of the sum of their exp(score)).  A row with no live key in the
+    slice gives o = 0 and lse = -inf.  ``merge_decode_partials`` of the
+    slices' (o, lse) is ``decode_attention_ref``."""
+    B, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    acc = _acc(q.dtype)
+    s = torch.einsum("bkgd,blkd->bkgl",
+                     q.reshape(B, Hkv, Hq // Hkv, D).to(acc),
+                     k.to(acc)) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    dev = q.device
+    cur = cur_lens.to(dev).long()[:, None]
+    pos = pos0 + torch.arange(L, device=dev)[None]
+    live = pos <= cur
+    if window:
+        live &= pos > cur - window
+    s = torch.where(live[:, None, None], s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                     # (B, Hkv, G)
+    p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    vf = torch.where(live[:, :, None, None], v.to(acc), 0.0)
+    o = torch.einsum("bkgl,blkd->bkgd", p, vf)
+    return o.reshape(B, Hq, D), lse.reshape(B, Hq)
+
+
+def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The slices' partials merged by their log-sum-exp weights: o (n, B,
+    Hq, D) and lse (n, B, Hq) of n slices of the cache, in slice order ->
+    (B, Hq, D), in o's dtype.  Elementwise ops and sums over the slice dim,
+    no atomics: bit-equal from run to run.  A row whose every slice has
+    lse = -inf (no live key anywhere) gives 0, the plain decode's value."""
+    m = lse.amax(0)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    w = torch.exp(lse - m)                               # 0 where -inf
+    den = w.sum(0)
+    num = (w[..., None] * o).sum(0)
+    return num / torch.where(den > 0, den, 1.0)[..., None]
 
 
 def paged_decode_attention_split_ref(q, pool_k, pool_v, tables, cur_lens,

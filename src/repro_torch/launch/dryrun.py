@@ -9,8 +9,9 @@ The counterpart of the reference package's ``launch/dryrun.py``, which
 lowers and compiles the global step over 256 or 512 placeholder devices
 through XLA's SPMD pipeline.  PyTorch has no SPMD partitioner, and the
 port's models compute on each rank's local shards with explicit
-collectives (``launch.mesh.port_rules``), so the port's dry-run runs one
-rank's step itself:
+collectives (``launch.mesh.port_rules``: tensor parallelism and the
+context-split cache for the dense attention family, expert parallelism for
+the MoE archs), so the port's dry-run runs one rank's step itself:
 
   * inside a ``fake`` process group of the production mesh's size (its
     collectives return at once and move nothing), made for the step and
@@ -137,7 +138,7 @@ def build_dryrun(arch: str, shape_name: str, multi_pod: bool,
     if rules_override:
         rules_a = {**rules_a, **rules_override.get("act", {})}
         rules_p = {**rules_p, **rules_override.get("param", {})}
-    rules_a, rules_p = port_rules(rules_a), port_rules(rules_p)
+    rules_a, rules_p = port_rules(rules_a, cfg), port_rules(rules_p, cfg)
 
     # on meta no values are drawn: the generator is not needed
     params = init_params(cfg, None, "meta", mesh, rules_p)

@@ -113,15 +113,36 @@ def needs_fsdp(cfg: ModelConfig, shape: InputShape,
     return wb / model_shards > 0.35 * V5E.hbm_cap
 
 
-#: the logical axes the port's models compute on in shards: the batch
-#: (data parallelism), and the experts and their d_ff (the expert-parallel
-#: MoE path).  The port has no tensor parallelism: every other leaf is
-#: whole on every rank.
+#: the logical axes every model of the port computes on in shards: the
+#: batch (data parallelism), and the experts and their d_ff (the
+#: expert-parallel MoE path)
 PORT_AXES = ("batch", "experts", "expert_ff")
+#: and those of tensor parallelism and the context-split decode cache
+#: (``models.ops``: column- / row-parallel attention and FFN, the
+#: vocab-parallel embedding, head and loss, the cache split over its
+#: positions), which the dense attention family computes on
+#: (``tensor_parallel``)
+TP_AXES = ("heads", "kv_heads", "ff", "vocab", "ctx")
 
 
-def port_rules(rules: dict) -> dict:
-    """`rules` with every logical axis but ``PORT_AXES`` replicated: the
-    table to build (``models.init_params``), cut the state with
-    (``models.params.shard_state``) and run the port's models under."""
-    return {k: (v if k in PORT_AXES else ()) for k, v in rules.items()}
+def tensor_parallel(cfg: Optional[ModelConfig]) -> bool:
+    """Whether the port runs `cfg` tensor-parallel: every layer is
+    attention (global or local, not MLA) with a dense FFN.  The other
+    mixers and the MoE archs' dense leaves still run whole on every rank
+    of "model" (ROADMAP A18)."""
+    return cfg is not None and not cfg.kv_lora_rank and all(
+        spec.mixer in ("attn", "local_attn") and spec.ffn == "dense"
+        for spec in cfg.layer_specs)
+
+
+def port_rules(rules: dict, cfg: Optional[ModelConfig] = None) -> dict:
+    """`rules` with every logical axis but ``PORT_AXES`` replicated, and
+    ``TP_AXES`` kept too where `cfg` runs tensor-parallel: the table to
+    build (``models.init_params``), cut the state with
+    (``models.params.shard_state``) and run the port's models under.  For
+    the dense attention family it keeps the reference's "heads",
+    "kv_heads", "ff", "vocab" and "ctx" mappings; without a config, or for
+    any other, those are replicated.  "embed" (FSDP) is replicated for
+    every config."""
+    keep = PORT_AXES + (TP_AXES if tensor_parallel(cfg) else ())
+    return {k: (v if k in keep else ()) for k, v in rules.items()}

@@ -38,6 +38,7 @@ from repro_torch.models.params import built_axes
 from repro_torch.scan import scan
 from repro_torch.sharding import (all_gather, all_reduce, axes_size,
                                   axis_group, current_mesh, current_rules,
+                                  logical_to_pspec, mesh_axes,
                                   reduce_scatter, shard_index)
 
 NEG_INF = -2.0 ** 30
@@ -188,6 +189,11 @@ def _write_kv(cfg: ModelConfig, state, k, v, ctx: ApplyCtx, dtype):
 def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     if cfg.kv_lora_rank:
         return _apply_mla(cfg, p, x, state, ctx)
+    mesh = current_mesh()
+    if mesh is not None:
+        plan = _attn_plan(cfg, p, state, mesh)
+        if plan is not None:
+            return _apply_attn_tp(cfg, p, x, state, ctx, plan)
     B, S, _ = x.shape
     dh, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
@@ -214,6 +220,286 @@ def apply_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     else:
         out = _kernel_attn(cfg, q, kc, vc, ctx, scale)
     out = out.reshape(B, S, nq * dh) @ p.wo
+    if cfg.post_norms:
+        out = rmsnorm(out, p.ln1_post, cfg.norm_plus_one)
+    return out.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the mesh, the reference's "heads", "kv_heads", "ff"
+# and "vocab" rules, and the decode cache split over its positions ("ctx").
+# Each rank holds the leaves as the model was built (``init_params(...,
+# mesh, rules)``: ``logical_to_pspec`` cuts the FLATTENED head dims, so a
+# rank may hold part of a head); the collectives are explicit, where the
+# reference leaves them to GSPMD.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Split:
+    """A dim cut into `n` equal shards over the process group `group`;
+    this rank holds shard `i`."""
+    group: object
+    n: int
+    i: int
+
+
+def _split_over(mesh, axes) -> Optional[Split]:
+    sizes = mesh_axes(mesh)
+    axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if not axes:
+        return None
+    i, n = shard_index(axes, mesh)
+    return Split(axis_group(mesh, axes), n, i)
+
+
+def leaf_split(p, name: str, dim: int, mesh) -> Optional[Split]:
+    """How dim `dim` of leaf `name` of module `p` was cut when the model was
+    built (``built_axes``), or None where it is whole (or no mesh)."""
+    if mesh is None:
+        return None
+    axes = built_axes(p, name, mesh)
+    return None if axes is None else _split_over(mesh, axes[dim])
+
+
+@dataclass(frozen=True)
+class _AttnPlan:
+    q: Optional[Split]         # wq's columns (= wo's rows, bq)
+    kv: Optional[Split]        # wk's / wv's columns (bk, bv)
+    ctx: Optional[Split]       # the cache's positions
+    cache_heads: tuple[int, int]   # the kv heads the rank's cache holds
+
+
+def _cache_layout(cfg: ModelConfig, mesh):
+    """(the Split of the cache's positions, (first, last + 1) of the kv
+    heads it holds) under the active rules: the cache leaf's spec, the
+    reference's ("batch", "ctx", "kv_heads", None).  A "ctx" mapping is
+    taken as given (``models.params.shard_state`` refuses one that does not
+    divide the cache length); "kv_heads" splits only where it divides."""
+    spec = logical_to_pspec(("batch", "ctx", "kv_heads", None),
+                            current_rules() or {}, None, mesh)
+    spec = spec + (None,) * (3 - len(spec))
+
+    def axes(e):
+        return () if e is None else ((e,) if isinstance(e, str) else e)
+    ctx = _split_over(mesh, axes(spec[1]))
+    kv = _split_over(mesh, axes(spec[2]))
+    nkv = cfg.num_kv_heads
+    if kv is None or nkv % kv.n:
+        return ctx, (0, nkv)
+    per = nkv // kv.n
+    return ctx, (kv.i * per, (kv.i + 1) * per)
+
+
+def _attn_plan(cfg: ModelConfig, p, state, mesh) -> Optional[_AttnPlan]:
+    """The layer's tensor-parallel layout under `mesh`, or None where
+    nothing is split (the single-device path then runs as it is)."""
+    sq, skv = leaf_split(p, "wq", 1, mesh), leaf_split(p, "wk", 1, mesh)
+    ctx, heads = (None, (0, cfg.num_kv_heads)) if state is None \
+        else _cache_layout(cfg, mesh)
+    if (sq, skv, ctx, heads) == (None, None, None, (0, cfg.num_kv_heads)):
+        return None
+    if skv is not None and (sq is None or sq.group != skv.group):
+        raise NotImplementedError(
+            f"{cfg.name}: kv projections split where the q projection is "
+            "not, or over other axes")
+    if state is not None and tuple(state["k"].shape[2:3]) \
+            != (heads[1] - heads[0],):
+        raise ValueError(f"{cfg.name}: the cache holds {state['k'].shape[2]}"
+                         f" kv heads, the rules give {heads}: cut it with "
+                         "shard_state under the same (mesh, rules)")
+    return _AttnPlan(sq, skv, ctx, heads)
+
+
+def _heads(t, split: Optional[Split], lo: int, hi: int, dh: int,
+           partial: bool):
+    """Heads [lo, hi) of a (B, S, H dh) projection of which this rank holds
+    `split`'s columns (all of them when None): sliced where they lie in
+    the rank's columns, else from the columns gathered whole (``_Gather``,
+    `partial` as its)."""
+    C = t.shape[-1]
+    if split is not None:
+        c0 = split.i * C
+        if c0 <= lo * dh and hi * dh <= c0 + C:
+            return t[..., lo * dh - c0:hi * dh - c0].unflatten(-1, (hi - lo,
+                                                                     dh))
+        t = _Gather.apply(t, split, 2, partial)
+    return t[..., lo * dh:hi * dh].unflatten(-1, (hi - lo, dh))
+
+
+def _group_kv(k, v, q0: int, nq: int, k0: int, G: int):
+    """k / v of kv heads [k0, ...) for query heads [q0, q0 + nq) of groups
+    of G: as they are where every kv head serves the same number of those
+    query heads (the kernels' Hq / Hkv grouping), else one kv head per
+    query head."""
+    k1 = (q0 + nq - 1) // G + 1
+    if k1 - q0 // G == 1 or (q0 % G == 0 and nq % G == 0):
+        return k[:, :, q0 // G - k0:k1 - k0], v[:, :, q0 // G - k0:k1 - k0]
+    idx = torch.arange(q0, q0 + nq, device=k.device) // G - k0
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _dequant(vals, scales, dtype):
+    return vals.to(dtype) * scales[..., None].to(dtype)
+
+
+def _write_owned(cfg: ModelConfig, state, k, v, ctx: ApplyCtx,
+                 plan: _AttnPlan):
+    """Write the new rows `k` / `v` (B, S, heads, D) of the heads the cache
+    holds, in place: with the cache split over its positions, only the
+    rows of the positions this rank holds (the host picks them from
+    ``ctx.write_idx``); an int8 cache gets values and scales."""
+    int8 = cfg.kv_cache_dtype == "int8"
+    news = {}
+    for name, new in (("k", k), ("v", v)):
+        if int8:
+            vals, scales = _quant_kv(new)
+            news[name], news[f"{name}_scale"] = vals, scales
+        else:
+            news[name] = new
+    if plan.ctx is None:
+        for name, new in news.items():
+            _update_cache(state[name], new, ctx.write_idx, ctx.positions)
+    else:
+        L = state["k"].shape[1]
+        pos0 = plan.ctx.i * L
+        B, S = k.shape[:2]
+        pos = ctx.write_idx[:, None] + np.arange(S)[None]
+        if not ((pos >= 0) & (pos < L * plan.ctx.n)).all():
+            raise IndexError(f"cache write of {S} rows at "
+                             f"{ctx.write_idx.tolist()} outside a cache of "
+                             f"{L * plan.ctx.n}")
+        bb, tt = np.nonzero((pos >= pos0) & (pos < pos0 + L))
+        if len(bb):
+            dev = k.device
+            bi, ti = (torch.as_tensor(a).to(dev) for a in (bb, tt))
+            rows = torch.as_tensor(pos[bb, tt] - pos0).to(dev)
+            for name, new in news.items():
+                state[name][bi, rows] = new[bi, ti].to(state[name].dtype)
+
+
+def _cache_read(cfg: ModelConfig, state, dtype, plan: _AttnPlan,
+                whole: bool):
+    """The rank's cache as attention reads it (dequantised for int8), or
+    with `whole` and a cache split over its positions, the slices
+    gathered over the split's group in position order."""
+    kc, vc = state["k"], state["v"]
+    if cfg.kv_cache_dtype == "int8":
+        kc = _dequant(kc, state["k_scale"], dtype)
+        vc = _dequant(vc, state["v_scale"], dtype)
+    if whole and plan.ctx is not None:
+        kc, vc = (all_gather(t, plan.ctx.group, plan.ctx.n).movedim(0, 1)
+                  .flatten(1, 2) for t in (kc, vc))
+    return kc, vc
+
+
+def _ctx_decode(cfg: ModelConfig, q, kc, vc, ctx: ApplyCtx, scale,
+                plan: _AttnPlan):
+    """Decode against a cache split over its positions: this rank's slice
+    scored by every query head (``decode_attention_partial``, or its plain
+    version), the slices' (o, lse) gathered over the split's group in
+    position order and merged by their log-sum-exp weights.  Returns (B,
+    1, Hq, D) in q's dtype."""
+    L = kc.shape[1]
+    pos0 = plan.ctx.i * L
+    fn = kref.decode_attention_partial_ref if ctx.plain_kernels \
+        else kops.decode_attention_partial
+    o, lse = fn(q[:, 0].contiguous(), kc.contiguous(), vc.contiguous(),
+                ctx.positions[:, 0], pos0, window=ctx.window,
+                softcap=float(cfg.attn_softcap), scale=scale)
+    o = all_gather(o, plan.ctx.group, plan.ctx.n)
+    lse = all_gather(lse, plan.ctx.group, plan.ctx.n)
+    return kref.merge_decode_partials(o, lse).to(q.dtype)[:, None]
+
+
+def _apply_attn_tp(cfg: ModelConfig, p, x, state, ctx: ApplyCtx,
+                   plan: _AttnPlan):
+    """``apply_attn`` on this rank's shards (module section above).
+
+    * q / k / v are column-parallel (``_Enter`` before them; a projection
+      the build kept whole enters after it), ``wo`` row-parallel (its
+      partial output summed over the group by ``_Leave``).
+    * Attention runs on the query heads that cover the rank's q columns:
+      whole heads with no gather where the head count divides the split,
+      else the projection gathered whole first; its kv heads are sliced
+      to them.  After attention the rank's columns go to ``wo``.
+    * A cache split over its positions is written by the owner of each
+      new row (the new k / v gathered to whole heads first); decode scores
+      every query head against the rank's positions and merges the
+      slices (``_ctx_decode``); a prefill at offset 0 attends the fresh k /
+      v, a chunk at a later offset the cache gathered whole."""
+    B, S, _ = x.shape
+    dh, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    G = nq // nkv
+    sq, skv = plan.q, plan.kv
+    h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
+    hin = h if sq is None else _Enter.apply(h, sq.group)
+
+    def proj(w, b, split):
+        y = (h if split is None else hin) @ w
+        if b is not None:
+            y = y + b
+        if split is None and sq is not None:
+            y = _Enter.apply(y, sq.group)     # whole, used rank by rank
+        return y
+
+    bias = cfg.qkv_bias
+    q = proj(p.wq, p.bq if bias else None, sq)
+    k = proj(p.wk, p.bk if bias else None, skv)
+    v = proj(p.wv, p.bv if bias else None, skv)
+    # the rank's q columns [c0, c1) and the query heads [qa, qb) attention
+    # computes: those covering the columns, or every head against a slice
+    # of the cache's positions
+    c0, c1 = (0, nq * dh) if sq is None else (sq.i * q.shape[-1],
+                                              (sq.i + 1) * q.shape[-1])
+    split_decode = ctx.mode == "decode" and plan.ctx is not None
+    qa, qb = (0, nq) if split_decode else (c0 // dh, -(-c1 // dh))
+    ka, kb = qa // G, (qb - 1) // G + 1
+    # kv heads needed: attention's, and those the cache holds for writing
+    wa, wb = (0, nkv) if plan.ctx is not None else plan.cache_heads
+    na, nb = (ka, kb) if state is None else (min(ka, wa), max(kb, wb))
+    partial = sq is not None
+    qh = apply_rope(_heads(q, sq, qa, qb, dh, partial), ctx.positions,
+                    cfg.rope_theta)
+    kh = apply_rope(_heads(k, skv, na, nb, dh, partial), ctx.positions,
+                    cfg.rope_theta)
+    vh = _heads(v, skv, na, nb, dh, partial)
+    scale = cfg.query_scale or dh ** -0.5
+
+    # a prompt at offset 0 attends its fresh rows (all its keys), as the
+    # cache stores them
+    fresh = state is None or (ctx.mode == "prefill"
+                              and not ctx.write_idx.any())
+    if state is not None:
+        _write_owned(cfg, state, kh[:, :, wa - na:wb - na],
+                     vh[:, :, wa - na:wb - na], ctx, plan)
+    if split_decode:
+        kc, vc = _cache_read(cfg, state, x.dtype, plan, whole=False)
+        out = _ctx_decode(cfg, qh, kc, vc, ctx, scale, plan)
+    else:
+        if fresh:
+            kc, vc, k0 = kh, vh, na
+            if state is not None and cfg.kv_cache_dtype == "int8":
+                kc, vc = (_dequant(*_quant_kv(t), x.dtype) for t in (kh, vh))
+        else:
+            if not wa <= ka < kb <= wb:
+                raise NotImplementedError(
+                    f"{cfg.name}: query heads [{qa}, {qb}) read kv heads "
+                    f"[{ka}, {kb}), the rank's cache holds [{wa}, {wb})")
+            kc, vc = _cache_read(cfg, state, x.dtype, plan, whole=True)
+            k0 = wa
+        kc, vc = _group_kv(kc, vc, qa, qb - qa, k0, G)
+        if ctx.plain_kernels:
+            k_pos = torch.arange(kc.shape[1], device=x.device)[None]
+            mask = _causal_mask(ctx.positions, k_pos, ctx.lengths,
+                                ctx.window)
+            out = _sdpa(qh, kc, vc, mask, scale, cfg.attn_softcap)
+        else:
+            out = _kernel_attn(cfg, qh, kc.contiguous(), vc.contiguous(),
+                               ctx, scale)
+    out = out.reshape(B, S, (qb - qa) * dh)[..., c0 - qa * dh:c1 - qa * dh]
+    out = out @ p.wo
+    if sq is not None:
+        out = _Leave.apply(out, sq.group)
     if cfg.post_norms:
         out = rmsnorm(out, p.ln1_post, cfg.norm_plus_one)
     return out.to(x.dtype), state
@@ -309,10 +595,18 @@ def apply_cross_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
 # ---------------------------------------------------------------------------
 
 def apply_dense_ffn(cfg: ModelConfig, p, x):
+    """Under a mesh whose build split d_ff ("ff"), w_gate / w_up are
+    column-parallel and w_down row-parallel: the rank's partial output is
+    summed over the split's group (``_Enter`` / ``_Leave``)."""
     h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
+    sf = leaf_split(p, "w_gate", 1, current_mesh())
+    if sf is not None:
+        h = _Enter.apply(h, sf.group)
     g = _act(h @ p.w_gate, cfg.act)
     u = h @ p.w_up
     out = (g * u) @ p.w_down
+    if sf is not None:
+        out = _Leave.apply(out, sf.group)
     if cfg.post_norms:
         out = rmsnorm(out, p.ln2_post, cfg.norm_plus_one)
     return out.to(x.dtype)
@@ -407,22 +701,28 @@ def _moe_dense_path(cfg: ModelConfig, p, h, top_p, top_i):
     return y.reshape(B, S, d)
 
 
-class _GatherFF(torch.autograd.Function):
-    """A weight's shards along `dim` gathered whole over `group` (n ranks)
-    forward, the reference's ``shard_map`` in_spec that gathers FSDP'd
-    expert weights; backward the gradient summed over the group and cut
-    back to this rank's shard (a reduce-scatter)."""
+class _Gather(torch.autograd.Function):
+    """A tensor's shards along `dim` gathered whole over `split`'s group
+    forward: FSDP'd expert weights (the reference's ``shard_map`` in_spec),
+    or tensor-parallel activations.  Backward, with `partial` (each rank
+    uses the whole tensor for its own part of a sum that leaves the group
+    by ``_Leave``) the gradient summed over the group and cut back to this
+    rank's shard (a reduce-scatter); without (every rank uses it alike)
+    this rank's slice of the gradient."""
 
     @staticmethod
-    def forward(ctx, w, group, n, dim):
-        ctx.group, ctx.n, ctx.dim = group, n, dim
-        return all_gather(w, group, n).movedim(0, dim).flatten(dim, dim + 1)
+    def forward(ctx, x, split, dim, partial):
+        ctx.split, ctx.dim, ctx.partial = split, dim, partial
+        return all_gather(x, split.group, split.n).movedim(0, dim).flatten(
+            dim, dim + 1)
 
     @staticmethod
     def backward(ctx, g):
-        n, dim = ctx.n, ctx.dim
-        parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0)
-        return reduce_scatter(parts, ctx.group), None, None, None
+        sp, dim = ctx.split, ctx.dim
+        parts = g.unflatten(dim, (sp.n, g.shape[dim] // sp.n)).movedim(dim, 0)
+        if ctx.partial:
+            return reduce_scatter(parts, sp.group), None, None, None
+        return parts[sp.i].contiguous(), None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -477,7 +777,7 @@ def _expert_weights(cfg: ModelConfig, p, mesh, ep_axes, ff_axes):
     """(we_gate, we_up, we_down) of this rank's experts, with d_ff split
     over `ff_axes` (whole when empty): the layout the path computes in.  A
     model built under other rules holds d_ff split over its build's
-    "expert_ff" axes: those shards are gathered (``_GatherFF``), and cut
+    "expert_ff" axes: those shards are gathered (``_Gather``), and cut
     to `ff_axes` where these split it, as the reference's ``shard_map``
     in_specs reshard its weights.  A layer that does not say how it was
     built must already hold that layout."""
@@ -488,8 +788,9 @@ def _expert_weights(cfg: ModelConfig, p, mesh, ep_axes, ff_axes):
     for name, dim in (("we_gate", 2), ("we_up", 2), ("we_down", 1)):
         w = getattr(p, name)
         if have != ff_axes and have:
-            w = _GatherFF.apply(w, axis_group(mesh, have),
-                                axes_size(mesh, have), dim)
+            i, n = shard_index(have, mesh)
+            w = _Gather.apply(w, Split(axis_group(mesh, have), n, i), dim,
+                              True)
         if have != ff_axes and ff_axes:
             i, n = shard_index(ff_axes, mesh)
             f = w.shape[dim] // n

@@ -32,7 +32,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.sharding import local_shard, local_slices, logical_to_pspec
+from repro_torch.sharding import (all_gather, axis_group, local_shard,
+                                  local_slices, logical_to_pspec, mesh_axes)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}
@@ -184,12 +185,13 @@ _FFNS = {"dense": _dense_ffn_leaves, "moe": _moe_ffn_leaves,
 class _Leaves(nn.Module):
     """A module whose parameters are the named leaves, uninitialised.
     ``shard_rules`` is the rules table its leaves were cut to one rank's
-    shards under, or None (whole)."""
+    shards under, or None (whole), and ``shard_mesh`` the mesh."""
 
     def __init__(self, leaves: dict[str, Leaf], dtype: torch.dtype, device):
         super().__init__()
         self.leaves = leaves
         self.shard_rules: Optional[dict] = None
+        self.shard_mesh = None
         for name, lf in leaves.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(lf.shape, device=device,
@@ -333,11 +335,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _built_under(model: Transformer, mesh, rules) -> Transformer:
-    """Each module keeps the rules its leaves were cut under."""
+    """Each module keeps the rules and the mesh its leaves were cut under."""
     if mesh is not None:
         for _, mod in _leaf_modules(model):
             mod.shard_rules = dict(rules)
+            mod.shard_mesh = mesh
     return model
+
+
+def whole_leaf(mod: nn.Module, name: str) -> torch.Tensor:
+    """Leaf `name` of `mod` whole: its shards gathered over the groups that
+    split it as it was built (``built_axes``), dim by dim, in the ranks'
+    shard order.  Collective where the leaf is split: every rank of the
+    mesh calls it, leaf for leaf in the same order."""
+    t = getattr(mod, name).detach()
+    mesh = mod.shard_mesh
+    if mesh is None:
+        return t
+    sizes = mesh_axes(mesh)
+    for dim, axes in enumerate(built_axes(mod, name, mesh)):
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        if axes:
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            t = all_gather(t.movedim(dim, 0), axis_group(mesh, axes), n
+                           ).flatten(0, 1).movedim(0, dim)
+    return t.contiguous()
 
 
 def _set_leaf(mod: nn.Module, name: str, value: torch.Tensor):
@@ -402,10 +426,13 @@ def to_jax_params(cfg: ModelConfig, model: Transformer) -> dict:
     """The inverse of ``from_jax_params``: the reference's ``init_params``
     tree of the model's weights, numpy leaves in its layout (``prefix/l{i}``
     apart, ``blocks/p{j}`` stacked on a leading ``num_blocks`` dim; bf16 as
-    raw 2-byte values)."""
+    raw 2-byte values).  Each leaf's global value: a model built under a
+    mesh has its shards gathered (``whole_leaf``; collective, every rank
+    of the mesh calls it)."""
     if model.cfg != cfg:
         raise ValueError(f"the model is a {model.cfg.name}, not {cfg.name}")
-    named = dict(model.named_parameters())
+    named = {_prefix(i) + n: whole_leaf(mod, n)
+             for i, mod in _leaf_modules(model) for n in mod.leaves}
     return nest({
         path: (np.stack([to_numpy(named[n]) for n in names]) if stacked
                else to_numpy(named[names[0]]))
@@ -515,12 +542,23 @@ def state_axes(cfg: ModelConfig, batch: int = 1,
 
 def shard_state(cfg: ModelConfig, state, mesh, rules):
     """This rank's shard of a whole `state` (``init_state``'s layout) under
-    (`mesh`, `rules`): each leaf cut by its logical axes."""
+    (`mesh`, `rules`): each leaf cut by its logical axes.  A cache whose
+    length does not divide over the axes "ctx" maps to is refused: the
+    layers take a "ctx" mapping as given (``models.ops._cache_layout``)."""
     out = []
     for st, axes in zip(state, state_axes(cfg)):
-        out.append({n: local_shard(t, logical_to_pspec(
-            axes[n], rules, tuple(t.shape), mesh), mesh)
-            for n, t in st.items()})
+        leaves = {}
+        for n, t in st.items():
+            spec = logical_to_pspec(axes[n], rules, tuple(t.shape), mesh)
+            if "ctx" in axes[n]:
+                d = axes[n].index("ctx")
+                want = logical_to_pspec(axes[n], rules, None, mesh)
+                if (want + (None,) * 4)[d] != (spec + (None,) * 4)[d]:
+                    raise ValueError(
+                        f"{n}: a cache of {t.shape[d]} positions does not "
+                        f"split over {want[d]}")
+            leaves[n] = local_shard(t, spec, mesh)
+        out.append(leaves)
     return out
 
 

@@ -4,6 +4,12 @@ The counterpart of the reference package's ``models/transformer.py``: a
 Python loop over the layers (the ``first_k_dense`` prefix, then the
 repeated block) takes the place of ``lax.scan``, and the state is updated
 in place (each entry point also returns the state, as the reference does).
+Under ``sharding.axis_rules(rules, mesh)`` a model built with its vocab
+split (``init_params(..., mesh, rules)``) embeds vocab-parallel (each rank
+looks up the tokens of its rows, the rows summed over the split) and
+unembeds to its vocab slice of the logits; the entry points still return
+whole logits, gathered (``forward_train_local`` keeps the slice, for the
+vocab-parallel loss).
 Lengths, chunk starts and cache lengths are taken on the host, where the
 serving loop keeps them.  A vision model's prefill takes the image as
 ``image_embeds`` (B, num_vision_tokens, d_model).  The serving entry
@@ -13,6 +19,7 @@ the caller enables grad and the leaves require it (``training``).
     forward_train(cfg, params, tokens, image_embeds=None, lengths=None,
                   remat=False, plain_kernels=False)
         -> (logits (B, S, V) f32, aux)
+    forward_train_local(...) -> (logits (B, S, V / n) f32, aux, vocab split)
     prefill(cfg, params, state, tokens, lengths, image_embeds=None,
             start=None) -> (last_logits (B, V) f32, state)
     decode_step(cfg, params, state, last_tokens, cur_lens,
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ops
 from repro_torch.models.ops import ApplyCtx
 from repro_torch.models.params import DTYPES, Transformer, init_state
+from repro_torch.sharding import current_mesh
 
 
 def _host_ints(x) -> np.ndarray:
@@ -66,17 +74,43 @@ def _apply_layer(cfg: ModelConfig, layer, x, state, ctx: ApplyCtx):
 
 
 def _embed(cfg: ModelConfig, params: Transformer, tokens):
-    x = params.embed[tokens]
+    sv = ops.leaf_split(params, "embed", 0, current_mesh())
+    if sv is None:
+        x = params.embed[tokens]
+    else:
+        # this rank's rows [v0, v0 + V_local): its tokens looked up, zeros
+        # for the rest, summed over the split (one term is not zero)
+        V = params.embed.shape[0]
+        loc = tokens - sv.i * V
+        mine = (loc >= 0) & (loc < V)
+        x = torch.where(mine[..., None], params.embed[loc.clamp(0, V - 1)],
+                        0.0)
+        x = ops._Leave.apply(x, sv.group)
     if cfg.scale_embeds:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(DTYPES[cfg.dtype])
 
 
-def _unembed(cfg: ModelConfig, params: Transformer, x):
+def _unembed_local(cfg: ModelConfig, params: Transformer, x):
+    """(logits of this rank's vocab slice, f32 after the softcap; the
+    vocab's Split, or None where the head is whole)."""
     x = ops.rmsnorm(x, params.final_norm, cfg.norm_plus_one)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    sv = ops.leaf_split(params, *(("embed", 0) if cfg.tie_embeddings
+                                  else ("lm_head", 1)), current_mesh())
+    if sv is not None:
+        x = ops._Enter.apply(x, sv.group)
     logits = (x @ head.to(x.dtype)).float()
-    return ops.softcap(logits, cfg.logit_softcap)
+    return ops.softcap(logits, cfg.logit_softcap), sv
+
+
+def _unembed(cfg: ModelConfig, params: Transformer, x):
+    """Whole logits: a vocab slice gathered over its split (every rank
+    uses the whole alike: its gradient is the rank's slice)."""
+    logits, sv = _unembed_local(cfg, params, x)
+    if sv is None:
+        return logits
+    return ops._Gather.apply(logits, sv, logits.dim() - 1, False)
 
 
 def _apply_layers(cfg: ModelConfig, layers, x, aux, states, ctx: ApplyCtx):
@@ -121,6 +155,19 @@ def forward_train(cfg: ModelConfig, params: Transformer, tokens,
     ``prefill``'s does.  Differentiable where the caller enables grad.
     Returns (logits (B, S, V) f32, aux), aux the MoE layers' summed
     load-balance loss (0 without MoE)."""
+    logits, aux, sv = forward_train_local(cfg, params, tokens, image_embeds,
+                                          lengths, remat, plain_kernels)
+    if sv is not None:
+        logits = ops._Gather.apply(logits, sv, 2, False)
+    return logits, aux
+
+
+def forward_train_local(cfg: ModelConfig, params: Transformer, tokens,
+                        image_embeds=None, lengths=None, remat: bool = False,
+                        plain_kernels: bool = False):
+    """``forward_train`` with the logits of this rank's vocab slice: (logits
+    (B, S, V / n) f32, aux, the vocab's ``ops.Split``, or None and whole
+    logits where the head is whole)."""
     dev = params.device
     tokens = _tokens(tokens, dev)
     B, S = tokens.shape
@@ -128,8 +175,9 @@ def forward_train(cfg: ModelConfig, params: Transformer, tokens,
                plain_kernels, image_embeds)
     x, aux = _backbone(cfg, params, _embed(cfg, params, tokens),
                        [None] * len(params.layers), ctx, remat)
-    return _unembed(cfg, params, x), torch.as_tensor(
-        aux, dtype=torch.float32, device=dev)
+    logits, sv = _unembed_local(cfg, params, x)
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=dev), sv
 
 
 def _ctx(mode, starts: np.ndarray, S: int, device, lengths=None,

@@ -249,11 +249,11 @@ def axis_group(mesh, axes: tuple[str, ...]):
     return _groups[key][1]
 
 
-def all_reduce(x, group):
-    """`x` summed over `group`, in a new tensor where `x` is not
-    contiguous (else in place)."""
+def all_reduce(x, group, op=dist.ReduceOp.SUM):
+    """`x` summed (or reduced by `op`) over `group`, in a new tensor where
+    `x` is not contiguous (else in place)."""
     x = x.contiguous()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 

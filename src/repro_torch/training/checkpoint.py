@@ -6,6 +6,13 @@ count and each key's shard.  A port model is saved through
 ``models.to_jax_params``, so each package reads the other's checkpoints;
 bf16 leaves are raw 2-byte values (``|V2``) either way.  Restore rebuilds
 the tree on the host, or a port model on the device of `like`.
+
+A model built under a mesh (``init_params(..., mesh, rules)``) is saved
+with each leaf's global value, as the reference's ``np.asarray`` of a
+sharded ``jax.Array`` gives it: every rank of the mesh calls ``save``, the
+leaves are gathered over the groups that split them, rank 0 writes, and
+the others wait on a barrier.  ``restore(path, like=sharded)`` cuts each
+leaf as `like` was cut (its ``shard_rules``).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import (Transformer, _from_numpy,
                                        from_jax_params, nest,
@@ -43,8 +51,19 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 def save(path: str, tree: Any, step: int = 0,
          shard_bytes: int = 1 << 30) -> None:
-    os.makedirs(path, exist_ok=True)
+    """Writes `tree` (module docstring); collective for a model built
+    under a mesh."""
     flat = _flatten(tree)
+    if isinstance(tree, Transformer) and tree.shard_mesh is not None:
+        if dist.get_rank() == 0:
+            _write(path, flat, step, shard_bytes)
+        dist.barrier()
+    else:
+        _write(path, flat, step, shard_bytes)
+
+
+def _write(path: str, flat: dict, step: int, shard_bytes: int) -> None:
+    os.makedirs(path, exist_ok=True)
     shards: list[dict[str, np.ndarray]] = [{}]
     sizes = [0]
     for k, v in flat.items():
@@ -63,9 +82,10 @@ def save(path: str, tree: Any, step: int = 0,
 
 def restore(path: str, like: Any = None) -> tuple[Any, int]:
     """Returns (tree, step).  With `like` a port model, a new model of its
-    config on its device; with another tree, re-nests into its structure
-    and casts to its dtypes (numpy or tensor leaves); otherwise returns the
-    flat {path: array} dict."""
+    config on its device, each leaf cut as `like`'s were (this rank's
+    shards of a model built under a mesh); with another tree, re-nests
+    into its structure and casts to its dtypes (numpy or tensor leaves);
+    otherwise returns the flat {path: array} dict."""
     with open(os.path.join(path, "index.json")) as f:
         index = json.load(f)
     flat: dict[str, np.ndarray] = {}
@@ -81,8 +101,9 @@ def restore(path: str, like: Any = None) -> tuple[Any, int]:
         "checkpoint/param structure mismatch: "
         f"{set(paths_like) ^ set(flat)}")
     if isinstance(like, Transformer):
-        return from_jax_params(like.cfg, nest(flat),
-                               device=like.device), index["step"]
+        return from_jax_params(like.cfg, nest(flat), device=like.device,
+                               mesh=like.shard_mesh,
+                               rules=like.shard_rules), index["step"]
 
     def rebuild(prefix, t):
         if isinstance(t, dict):

@@ -20,7 +20,16 @@ on the expert-parallel path and ``_SumShards`` on the dense one), each
 leaf's gradient is summed over the batch axes that do not split the leaf,
 and the clip norm sums each sharded leaf's squares over the ranks that
 hold its shards; all through ``sharding.all_reduce``.  The clip and the
-update are the single-device ones.
+update are the single-device ones.  With tensor parallelism (a model built
+with its heads, d_ff and vocab split over "model") the gradient of a split
+leaf is the rank's shard's, and stays local; a leaf replicated over
+"model" gets the same whole gradient on every rank of it (the layers'
+``_Enter`` all-reduces the gradient where replicated activations turn
+rank-specific), so it is summed over the batch axes only.  The loss never
+gathers the (B, S, V) logits: ``lm_loss`` takes the cross-entropy of the
+rank's vocab slice, the row max, the sum of exps and the label's logit
+each reduced over the vocab's split, as the reference's ``log_softmax`` of
+vocab-sharded logits partitions.
 """
 from __future__ import annotations
 
@@ -29,10 +38,13 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import forward_train, init_params
+from repro_torch.models import init_params
+from repro_torch.models.ops import _Leave
 from repro_torch.models.params import _leaf_modules, _prefix, built_axes
+from repro_torch.models.transformer import forward_train_local
 from repro_torch.sharding import (all_reduce, axes_size, axis_group,
                                   current_mesh, current_rules, mesh_axes)
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -43,15 +55,37 @@ def lm_loss(cfg: ModelConfig, params, tokens, labels, image_embeds=None,
             remat: bool = False,
             plain_kernels: bool = False) -> tuple[torch.Tensor, dict]:
     """(ce + aux, {"ce", "aux"}); `plain_kernels` runs the forward through
-    the plain versions in place of the kernels (to compare with them)."""
-    logits, aux = forward_train(cfg, params, tokens,
-                                image_embeds=image_embeds, remat=remat,
-                                plain_kernels=plain_kernels)
-    logp = torch.log_softmax(logits, dim=-1)
-    labels = torch.as_tensor(labels).to(logp.device).long()
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    ce = -ll.mean()
+    the plain versions in place of the kernels (to compare with them).
+    With the vocab split (module docstring) the cross-entropy is computed
+    on the rank's slice of the logits."""
+    logits, aux, sv = forward_train_local(
+        cfg, params, tokens, image_embeds=image_embeds, remat=remat,
+        plain_kernels=plain_kernels)
+    labels = torch.as_tensor(labels).to(logits.device).long()
+    if sv is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        ce = -ll.mean()
+    else:
+        ce = _vocab_parallel_ce(logits, labels, sv)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _vocab_parallel_ce(logits, labels, sv):
+    """The mean of -log softmax(logits)[label] over the rows, from this
+    rank's vocab slice (B, S, V / n) of the logits: the row max (taken
+    over the split, no gradient: any shift gives the same value), the sum
+    of the exps and the label's logit (zero on the ranks without it), each
+    summed over the split with ``_Leave`` (every rank's loss is the same;
+    each rank's slice gets its own gradient)."""
+    V = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(-1), sv.group, dist.ReduceOp.MAX)
+    se = _Leave.apply(torch.exp(logits - m[..., None]).sum(-1), sv.group)
+    loc = labels - sv.i * V
+    mine = (loc >= 0) & (loc < V)
+    ll = torch.gather(logits, -1, loc.clamp(0, V - 1)[..., None])[..., 0]
+    ll = _Leave.apply(torch.where(mine, ll, 0.0), sv.group)
+    return (m + torch.log(se) - ll).mean()
 
 
 def _check_device(params, device):

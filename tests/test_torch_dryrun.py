@@ -50,10 +50,17 @@ def test_main_runs_qwen2_decode_32k(records):
             assert key in rec, key
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                       "temp_bytes"}
-        # a dense model's weights are whole on every rank: no collective,
-        # and every rank of a data row runs the same rows
-        assert rec["collectives"] == {}
-        assert rec["collective_bytes_per_chip"] == 0
+        # tensor parallelism over "model" and the cache over "ctx": per
+        # layer the row-parallel outputs' all-reduces (attention, FFN) and
+        # the all-gathers of q (14 heads do not split 16 ways), the new k
+        # and v (to their owner), the slices' o and lse; the embedding's
+        # all-reduce and the logits' all-gather once
+        L = 24
+        assert rec["collectives"]["all-reduce"]["count"] == 2 * L + 1
+        assert rec["collectives"]["all-gather"]["count"] == 5 * L + 1
+        assert set(rec["collectives"]) == {"all-reduce", "all-gather"}
+        assert rec["collective_bytes_per_chip"] == sum(
+            c["bytes"] for c in rec["collectives"].values()) > 0
         assert rec["flops_global"] > 0 and rec["bottleneck"] == "memory"
 
 
@@ -93,21 +100,25 @@ def _shard_bytes(shape, axes, rules, mesh, dtype) -> int:
     return n * dtype.itemsize
 
 
-@pytest.mark.parametrize("arch", ["llama31_8b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", ["llama31_8b", "deepseek_v2_lite_16b",
+                                  "qwen25_32b"])
 def test_argument_bytes_are_the_local_shards(arch):
     """On the 256-rank mesh, decode_32k's argument bytes are the sum of
     each parameter's, cache leaf's and input's local shard bytes
     (``sharding.local_slices`` of its spec under the build's rules):
     DeepSeek-V2-Lite's experts split over "model" (and their d_ff over
-    "data" for decode), the batch of 128 over "data"."""
+    "data" for decode), the batch of 128 over "data"; Qwen-2.5-32B under
+    tensor parallelism, every weight's flattened heads, d_ff or vocab over
+    "model" and the cache over "ctx", 8.39 GB a rank where whole leaves
+    and cache took 134.2 GB."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch.mesh import act_rules, param_rules, port_rules
     with dryrun.fake_group(False):
         fn, args, cfg, mesh, rules_a, shape = dryrun.build_dryrun(
             arch, "decode_32k", multi_pod=False)
         rules_p = port_rules(param_rules(cfg, INPUT_SHAPES["decode_32k"],
-                                         False))
-        assert rules_a == port_rules(act_rules(shape, False))
+                                         False), cfg)
+        assert rules_a == port_rules(act_rules(shape, False), cfg)
         model = args[0]
         dt = DTYPES[cfg.param_dtype]
         want = sum(
@@ -123,6 +134,8 @@ def test_argument_bytes_are_the_local_shards(arch):
         want += (128 // 16) * 4                  # last_tokens, int32
         assert roofline.argument_bytes(*args) == want
         assert isinstance(args[3], np.ndarray)   # cur_lens: host ints
+        if arch == "qwen25_32b":
+            assert 8.0e9 < want < 8.6e9
     assert not dist.is_initialized()
 
 

@@ -241,6 +241,62 @@ def test_decode_kernel_split_cases(cuda, case):
     assert torch.equal(out, again)
 
 
+# One slice of a cache split over its positions (decode_attention_partial):
+# the whole cache's length, the number of slices, heads and cur_lens.
+PARTIAL_CASES = {
+    # id: (L, n, Hq, Hkv, D, window, softcap, cur_lens)
+    "window-starts-mid-slice": (256, 4, 8, 2, 64, 100, 0.0, [200, 130, 70]),
+    "cur-on-a-slice-boundary": (256, 4, 8, 2, 32, 0, 0.0,
+                                [63, 64, 127, 128]),
+    "rows-with-no-live-key": (256, 4, 8, 2, 32, 16, 0.0, [10, 300]),
+    "llama-heads": (4096, 4, 32, 8, 128, 0, 0.0, [4095, 1500, 700, 0]),
+    "qwen-heads-g5": (2048, 4, 40, 8, 128, 0, 0.0, [2047, 1000]),
+    "gemma-d256-window-softcap": (8192, 4, 16, 8, 256, 4096, 50.0,
+                                  [8191, 5000, 3000, 100]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(PARTIAL_CASES))
+def test_decode_partial_kernel(cuda, case, dtype):
+    """Each slice's (o, lse) against the plain version within 2e-5 (o and
+    lse are f32 for both input types; -inf exactly where the plain version
+    has it), bit-equal to itself; the slices merged against the plain
+    one-pass decode on the same values in f32."""
+    L, n, Hq, Hkv, D, window, cap, curs = PARTIAL_CASES[case]
+    B = len(curs)
+    g = torch.Generator(device=cuda).manual_seed(L + Hq + D)
+    q = _randn(g, B, Hq, D, dtype=dtype)
+    k = _randn(g, B, L, Hkv, D, dtype=dtype)
+    v = _randn(g, B, L, Hkv, D, dtype=dtype)
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    per = L // n
+    os_, lses = [], []
+    for i in range(n):
+        ks = k[:, i * per:(i + 1) * per].contiguous()
+        vs = v[:, i * per:(i + 1) * per].contiguous()
+        o, lse = kops.decode_attention_partial(q, ks, vs, cur, i * per,
+                                               window=window, softcap=cap)
+        wo, wl = ref.decode_attention_partial_ref(q, ks, vs, cur, i * per,
+                                                  window=window, softcap=cap)
+        assert o.dtype == lse.dtype == torch.float32
+        _close(o, wo, 2e-5)
+        torch.testing.assert_close(torch.isneginf(lse), torch.isneginf(wl))
+        live = torch.isfinite(wl)
+        _close(lse[live], wl[live], 2e-5)
+        again = kops.decode_attention_partial(q, ks, vs, cur, i * per,
+                                              window=window, softcap=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        os_.append(o)
+        lses.append(lse)
+    merged = ref.merge_decode_partials(torch.stack(os_), torch.stack(lses))
+    assert not torch.isnan(merged).any()
+    _close(merged, ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            cur, window=window, softcap=cap),
+           2e-5)
+
+
 def _main_path_decode(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
     q = _randn(g, 4, 32, 128, dtype=dtype)
@@ -309,6 +365,8 @@ def test_wrappers_count_launches(cuda):
     kops.prefill_attention(q, kv, kv, torch.zeros(1, device=cuda),
                            torch.full((1,), 8, device=cuda))
     kops.decode_attention_op(q[:, 0], kv, kv, torch.tensor([3], device=cuda))
+    kops.decode_attention_partial(q[:, 0], kv, kv,
+                                  torch.tensor([11], device=cuda), 4)
     kops.paged_decode_attention(q[:, 0], kv, kv,
                                 torch.zeros(1, 1, device=cuda),
                                 torch.tensor([3], device=cuda))
@@ -318,6 +376,7 @@ def test_wrappers_count_launches(cuda):
     torch.cuda.synchronize()
     assert kops.LAUNCHES == {"chunked_prefill_attention": 1,
                              "decode_attention": 1,
+                             "decode_attention_partial": 1,
                              "paged_decode_attention": 1, "wkv6": 1}
 
 
@@ -336,6 +395,7 @@ def test_wrappers_count_one_launch_per_call_on_the_new_paths(cuda):
     torch.cuda.synchronize()
     assert kops.LAUNCHES == {"chunked_prefill_attention": 1,
                              "decode_attention": 0,
+                             "decode_attention_partial": 0,
                              "paged_decode_attention": 0, "wkv6": 1}
 
 

@@ -154,12 +154,14 @@ def test_cpu_path_launches_no_kernel():
     kv = torch.randn(1, 8, 2, 16)
     tops.prefill_attention(q, kv, kv, torch.zeros(1), torch.full((1,), 8))
     tops.decode_attention_op(q[:, 0], kv, kv, torch.tensor([3]))
+    tops.decode_attention_partial(q[:, 0], kv, kv, torch.tensor([11]), 4)
     tops.paged_decode_attention(q[:, 0], kv[0, None], kv[0, None],
                                 torch.zeros(1, 1), torch.tensor([3]))
     x = torch.rand(1, 8, 2, 16)
     tops.wkv6_op(x, x, x, x, torch.rand(2, 16), torch.zeros(1, 2, 16, 16))
     assert tops.LAUNCHES == {"chunked_prefill_attention": 0,
                              "decode_attention": 0,
+                             "decode_attention_partial": 0,
                              "paged_decode_attention": 0, "wkv6": 0}
 
 

@@ -13,8 +13,23 @@
   within 1e-5 (f32);
 * the single-process step of the whole batch: ``make_train_step`` under
   the mesh (Kimi K2 SMOKE on the EP path, built with expert d_ff over
-  "data", and on the dense MoE path; a dense SMOKE config) reduces its
-  gradients and clip norm to the global batch's (ROADMAP C6).
+  "data", and on the dense MoE path; a dense SMOKE config, data-parallel
+  and tensor-parallel) reduces its gradients and clip norm to the global
+  batch's (ROADMAP C6);
+* tensor parallelism and the decode cache split over "ctx" (ROADMAP A18,
+  ``models.ops._apply_attn_tp``): Llama, Qwen (bias, heads that do not
+  divide 4) and Gemma-2 (a window across the cache's slices, softcaps)
+  SMOKE under ``port_rules(act_rules / param_rules, cfg)``: prefill and
+  greedy decode steps with the cache over "model", the B = 1 rule (the
+  cache over ("data", "model")), a chunk at a later offset and Llama's
+  int8 cache, against the port's single process and the reference's
+  ``prefill`` / ``decode_step`` under the same rules and mesh, within
+  2e-4 of max |logit|, tokens exact; ``forward_train`` gradients within
+  2e-4 of each leaf's largest;
+* checkpoints of sharded models (ROADMAP C7): Kimi K2 SMOKE with FSDP'd
+  experts and Llama SMOKE under tensor parallelism, saved from all ranks,
+  hold the whole model's bytes, the reference's ``restore`` reads them,
+  and a restore into a sharded model gives each rank its shards.
 
 One world of ranks (``torch.multiprocessing``, spawn, a FileStore in a
 temp dir) and the JAX subprocess run once for the module, side by side;
@@ -45,6 +60,7 @@ from repro_torch import models as tm
 from repro_torch.configs import get_config
 from repro_torch.models import ops as tops
 from repro_torch.sharding import axis_rules, local_slices, logical_to_pspec
+from repro_torch.training.checkpoint import _flatten
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "kimi_k2_1t_a32b"
@@ -131,6 +147,61 @@ for k in p:
                                 ).max() / np.abs(np.asarray(dn_p[k])).max()
 res["hazard_x"] = np.abs(np.asarray(ep_x) - np.asarray(dn_x)).max() \
     / np.abs(np.asarray(dn_x)).max()
+
+# tensor parallelism: the reference's prefill / decode_step of the dense
+# SMOKE configs under its act rules on the (2, 4) mesh, greedy
+from repro import models as jm
+from repro.configs import InputShape
+from repro.launch.mesh import act_rules
+tp = dict(np.load(sys.argv[3]))
+toks, lens = tp["toks"], tp["lens"]
+B, S = toks.shape
+for case, arch, kv8, batch, chunk in (
+        ("llama31_8b", "llama31_8b", False, B, 0),
+        ("qwen25_32b", "qwen25_32b", False, B, 0),
+        ("gemma2_9b", "gemma2_9b", False, B, 0),
+        ("llama_int8", "llama31_8b", True, B, 0),
+        ("gemma2_9b_b1", "gemma2_9b", False, 1, 0),
+        ("llama31_8b_chunk", "llama31_8b", False, B, int(tp["chunk"]))):
+    jcfg = get_config(arch, smoke=True)
+    if kv8:
+        jcfg = jcfg.replace(kv_cache_dtype="int8")
+    flat = {k.split("|", 1)[1]: v for k, v in tp.items()
+            if k.startswith(arch + "|")}
+    params = {"prefix": {}, "blocks": {}}
+    for path, leaf in flat.items():
+        *parents, name = path.split("/")
+        node = params
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = jnp.asarray(leaf)
+    rules = act_rules(InputShape("decode", int(tp["max_len"]), batch,
+                                 "decode"), False)
+    t, l = jnp.asarray(toks[:batch]), jnp.asarray(lens[:batch])
+    steps = int(tp["chunk_steps"] if chunk else tp["steps"])
+    with axis_rules(rules, mesh), compat_set_mesh(mesh):
+        st = jm.init_state(jcfg, batch, int(tp["max_len"]))
+        pre = jax.jit(lambda p, s, t, l, st0: jm.prefill(jcfg, p, s, t, l,
+                                                         start=st0))
+        if chunk:
+            first = jnp.minimum(l, chunk)
+            _, st = pre(params, st, t[:, :chunk], first,
+                        jnp.zeros((batch,), jnp.int32))
+            logits, st = pre(params, st, t[:, chunk:], l,
+                             jnp.full((batch,), chunk, jnp.int32))
+        else:
+            logits, st = pre(params, st, t, l, jnp.zeros((batch,), jnp.int32))
+        dec = jax.jit(lambda p, s, x, c: jm.decode_step(jcfg, p, s, x, c))
+        outs, cur, seq = [np.asarray(logits)], l, []
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        for _ in range(steps):
+            seq.append(np.asarray(tok))
+            logits, st = dec(params, st, tok, cur)
+            outs.append(np.asarray(logits))
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            cur = cur + 1
+    res[f"tp_{case}"] = np.stack(outs)
+    res[f"tp_{case}_tokens"] = np.stack(seq)
 np.savez(out, **res)
 print("JAX_EP_OK")
 """
@@ -187,7 +258,7 @@ def _batch_rows(mesh, n_rows):
     return slice(d * per, (d + 1) * per)
 
 
-def _rank_main(rank, tmpdir):
+def _rank_main(rank, tmpdir, ckpt_dir):
     """One rank: the layer cases, then Kimi K2 SMOKE's forward_train and
     gradients, then a forward at capacity factor 0.1; saves them all."""
     from repro_torch.launch.mesh import port_rules
@@ -267,6 +338,9 @@ def _rank_main(rank, tmpdir):
             out["logits_cf01"], _ = tm.forward_train(cfg, model, toks)
         out["dropped_cf01"] = torch.as_tensor(tops.EP_PAIRS["dropped"])
         out.update(_sharded_train(mesh))
+        out.update(_tp_serve(mesh, tmpdir))
+        out.update(_tp_grads(mesh))
+        out.update(_checkpoints(mesh, ckpt_dir))
         torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -334,12 +408,19 @@ def _serve_and_build(mesh):
 #: (arch, the rules it is built under, the rules it runs under)
 TRAIN_RULES = {"batch": ("data",), "experts": ("model",), "expert_ff": ()}
 DENSE_MOE = {"batch": ("data",), "experts": (), "expert_ff": ()}
+#: tensor parallelism over "model" (kept by ``port_rules`` for the dense
+#: attention family)
+TP_TRAIN = {**TRAIN_RULES, "heads": ("model",), "kv_heads": ("model",),
+            "ff": ("model",), "vocab": ("model",)}
 TRAIN_CASES = {
     "ep": ("kimi_k2_1t_a32b", TRAIN_RULES, TRAIN_RULES),
     "fsdp": ("kimi_k2_1t_a32b", {**TRAIN_RULES, "expert_ff": ("data",)},
              TRAIN_RULES),
     "dense": ("kimi_k2_1t_a32b", DENSE_MOE, DENSE_MOE),
     "llama": ("llama31_8b", TRAIN_RULES, TRAIN_RULES),
+    "llama_tp": ("llama31_8b", TP_TRAIN, TP_TRAIN),
+    "qwen_tp": ("qwen25_32b", TP_TRAIN, TP_TRAIN),
+    "gemma_tp": ("gemma2_9b", TP_TRAIN, TP_TRAIN),
 }
 
 
@@ -371,9 +452,9 @@ def _sharded_train(mesh):
     out = {}
     for case, (arch, built, rules) in TRAIN_CASES.items():
         cfg = _train_cfg(arch)
-        rules = port_rules(rules)
+        rules = port_rules(rules, cfg)
         model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                               mesh, port_rules(built))
+                               mesh, port_rules(built, cfg))
         opt = adamw_init(model, _train_opt())
         step = make_train_step(cfg, _train_opt(), device="cpu")
         grads, update = {}, train_loop.adamw_update
@@ -392,6 +473,172 @@ def _sharded_train(mesh):
             "grads": grads, "loss": m["loss"], "grad_norm": m["grad_norm"],
             "params": {n: q.detach().clone()
                        for n, q in model.named_parameters()}}
+    return out
+
+
+TP_CHUNK = 48                # the chunk case: [0, 48), then the rest
+#: the tensor-parallel serving cases: (name, arch, int8 cache, the batch
+#: of the rules (1: the cache over ("data", "model")), chunk start or 0)
+TP_CASES = (("llama31_8b", "llama31_8b", False, B, 0),
+            ("qwen25_32b", "qwen25_32b", False, B, 0),
+            ("gemma2_9b", "gemma2_9b", False, B, 0),
+            ("llama_int8", "llama31_8b", True, B, 0),
+            ("gemma2_9b_b1", "gemma2_9b", False, 1, 0),
+            ("llama31_8b_chunk", "llama31_8b", False, B, TP_CHUNK))
+TP_ARCHS = ("llama31_8b", "qwen25_32b", "gemma2_9b")
+#: prompts padded to 80: Gemma-2 SMOKE's 64-token window crosses the
+#: cache's slices of 24 (12 under the B = 1 rule)
+TP_LENGTHS = [80, 67, 41, 75]
+TP_MAX_LEN = 96
+TP_STEPS = 4                 # greedy decode steps
+TP_CHUNK_STEPS = 2           # after the chunk at offset TP_CHUNK
+
+
+def _tp_cfg(arch, kv8=False):
+    cfg = get_config(arch, smoke=True)
+    return cfg.replace(kv_cache_dtype="int8") if kv8 else cfg
+
+
+def _tp_tokens():
+    rng = np.random.RandomState(21)
+    toks = np.zeros((B, max(TP_LENGTHS)), np.int64)
+    for b, L in enumerate(TP_LENGTHS):
+        toks[b, :L] = rng.randint(0, 512, L)     # every SMOKE vocab is 512
+    return toks
+
+
+def _tp_weights():
+    """The JAX subprocess's inputs: each TP arch's weights (the port's
+    whole model, seed 0, in the reference's layout), the prompts and the
+    step counts."""
+    out = {"toks": _tp_tokens().astype(np.int32),
+           "lens": np.array(TP_LENGTHS, np.int32), "max_len": TP_MAX_LEN,
+           "steps": TP_STEPS, "chunk": TP_CHUNK,
+           "chunk_steps": TP_CHUNK_STEPS}
+    for arch in TP_ARCHS:
+        cfg = _tp_cfg(arch)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        for path, a in _flatten(tm.to_jax_params(cfg, model)).items():
+            out[f"{arch}|{path}"] = a
+    return out
+
+
+def _tp_rules(cfg, batch):
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    shape = InputShape("decode", TP_MAX_LEN, batch, "decode")
+    return (port_rules(act_rules(shape, False), cfg),
+            port_rules(param_rules(cfg, shape, False), cfg))
+
+
+def _tp_run(cfg, model, toks, lens, chunk, steps, mesh=None, rules=None,
+            batch=None):
+    """Prefill (whole, or in two chunks at `chunk`) then greedy decode
+    steps; under (`mesh`, `rules`) the cache of the global `batch` is cut
+    by ``shard_state``: (logits (1 + steps, B, V), tokens (steps, B))."""
+    B_ = toks.shape[0]
+    if mesh is None:
+        state = tm.init_state(cfg, B_, TP_MAX_LEN, "cpu")
+    else:
+        state = tm.params.shard_state(cfg, tm.init_state(
+            cfg, batch, TP_MAX_LEN, "cpu"), mesh, rules)
+    if chunk:
+        _, state = tm.prefill(cfg, model, state, toks[:, :chunk],
+                              np.minimum(lens, chunk))
+        logits, state = tm.prefill(cfg, model, state, toks[:, chunk:], lens,
+                                   start=np.full(B_, chunk))
+    else:
+        logits, state = tm.prefill(cfg, model, state, toks, lens)
+    out, seq, cur = [logits], [], np.asarray(lens)
+    tok = logits.argmax(-1)
+    for _ in range(steps):
+        seq.append(tok)
+        logits, state = tm.decode_step(cfg, model, state, tok, cur)
+        out.append(logits)
+        tok = logits.argmax(-1)
+        cur = cur + 1
+    return torch.stack(out), torch.stack(seq)
+
+
+def _tp_serve(mesh, tmpdir):
+    """Each of TP_CASES on this rank: the model built under the param
+    rules with tensor parallelism, the prompts of its rows (the first one
+    only, on every rank, under the B = 1 rule), the cache cut by
+    ``shard_state``."""
+    from repro_torch.sharding import axis_rules
+    out = {}
+    toks = _tp_tokens()
+    lens = np.array(TP_LENGTHS)
+    for name, arch, kv8, batch, chunk in TP_CASES:
+        cfg = _tp_cfg(arch, kv8)
+        rules_a, rules_p = _tp_rules(cfg, batch)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh, rules_p)
+        rows = _batch_rows(mesh, B) if batch > 1 else slice(0, 1)
+        with axis_rules(rules_a, mesh), torch.no_grad():
+            out[f"tp.{name}"] = _tp_run(
+                cfg, model, toks[rows], lens[rows], chunk,
+                TP_CHUNK_STEPS if chunk else TP_STEPS, mesh, rules_a, batch)
+    return out
+
+
+def _tp_grads(mesh):
+    """``forward_train`` of each TP arch under the train rules with tensor
+    parallelism: the logits of this rank's rows and every leaf's gradient
+    of <C, logits> summed over "data"."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    from repro_torch.sharding import axis_rules
+    out = {}
+    shape = InputShape("train", S, B, "train")
+    for arch in TP_ARCHS:
+        cfg = _tp_cfg(arch)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh, port_rules(param_rules(cfg, shape,
+                                                            False), cfg))
+        model.requires_grad_(True)
+        rows = _batch_rows(mesh, B)
+        with axis_rules(port_rules(act_rules(shape, False), cfg), mesh):
+            logits, _ = tm.forward_train(cfg, model, _tokens(cfg)[rows])
+            (logits * _cotangent(cfg)[rows]).sum().backward()
+        grads = {}
+        for name, q in model.named_parameters():
+            dist.all_reduce(q.grad, group=mesh.get_group("data"))
+            grads[name] = q.grad
+        out[f"tp_grad.{arch}"] = {"logits": logits.detach(), "grads": grads}
+    return out
+
+
+#: C7's cases: Kimi K2 SMOKE built under the train param rules with FSDP
+#: (experts over "model", their d_ff over "data"), Llama SMOKE under
+#: tensor parallelism
+def _ckpt_cases():
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.mesh import param_rules, port_rules
+    kimi, llama = _moe_cfg(100.0), _train_cfg("llama31_8b")
+    return {"kimi": (kimi, port_rules(param_rules(
+                kimi, INPUT_SHAPES["train_4k"], False, fsdp=True), kimi)),
+            "llama": (llama, port_rules(TP_TRAIN, llama))}
+
+
+def _checkpoints(mesh, ckpt_dir):
+    """Each C7 case saved from every rank at step 7, then restored into a
+    model built under the same rules from other values: (the step, every
+    leaf bit-equal to the saved model's shard, the leaves' local shapes)."""
+    from repro_torch.training import checkpoint
+    out = {}
+    for name, (cfg, rules) in _ckpt_cases().items():
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                               mesh, rules)
+        path = os.path.join(ckpt_dir, name)
+        checkpoint.save(path, model, step=7)
+        like = tm.init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+                              mesh, rules)
+        got, step = checkpoint.restore(path, like=like)
+        out[f"ckpt.{name}"] = (step, all(
+            torch.equal(a, b) for a, b in zip(got.parameters(),
+                                              model.parameters())),
+            [tuple(q.shape) for q in got.parameters()])
     return out
 
 
@@ -414,23 +661,32 @@ def _cotangent(cfg):
 
 
 @pytest.fixture(scope="module")
-def world():
+def ckpt_dir(tmp_path_factory):
+    """Where the ranks save their checkpoints (C7), kept for the tests."""
+    return tmp_path_factory.mktemp("sharded_ckpt")
+
+
+@pytest.fixture(scope="module")
+def world(ckpt_dir):
     """Runs the JAX subprocess and the 8 ranks side by side; returns the
     JAX results, each rank's results and the rank's mesh coordinates."""
     with tempfile.TemporaryDirectory() as tmpdir:
         np.savez(os.path.join(tmpdir, "inputs.npz"), **_layer_inputs())
+        np.savez(os.path.join(tmpdir, "tp_inputs.npz"), **_tp_weights())
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=8",
                    PYTHONPATH=str(ROOT / "src"))
         ref = subprocess.Popen(
             [sys.executable, "-c", _JAX, os.path.join(tmpdir, "inputs.npz"),
-             os.path.join(tmpdir, "jax.npz")], env=env,
+             os.path.join(tmpdir, "jax.npz"),
+             os.path.join(tmpdir, "tp_inputs.npz")], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
-            tmp.start_processes(_rank_main, args=(tmpdir,), nprocs=WORLD,
-                                join=True, start_method="spawn")
+            tmp.start_processes(_rank_main, args=(tmpdir, str(ckpt_dir)),
+                                nprocs=WORLD, join=True,
+                                start_method="spawn")
         finally:
-            stdout, stderr = ref.communicate(timeout=300)
+            stdout, stderr = ref.communicate(timeout=600)
         assert ref.returncode == 0 and "JAX_EP_OK" in stdout, stderr[-3000:]
         jax_out = dict(np.load(os.path.join(tmpdir, "jax.npz")))
         ranks = [torch.load(os.path.join(tmpdir, f"rank{r}.pt"))
@@ -740,3 +996,144 @@ def test_sharded_train_step_is_the_global_batch_step(world, train_reference,
             moved = (got["params"][name] - params[name][cut]).abs()
             assert (moved[sure] <= 1e-5).all(), (case, r, name)
             assert (moved <= 2 * lr + 1e-6).all(), (case, r, name)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism and the context-split cache (A18), checkpoints (C7)
+# ---------------------------------------------------------------------------
+
+TP_TOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def tp_single():
+    """The port's single process of each of TP_CASES, whole on the CPU."""
+    out = {}
+    toks, lens = _tp_tokens(), np.array(TP_LENGTHS)
+    for name, arch, kv8, batch, chunk in TP_CASES:
+        cfg = _tp_cfg(arch, kv8)
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with torch.no_grad():
+            out[name] = _tp_run(cfg, model, toks[:batch], lens[:batch],
+                                chunk, TP_CHUNK_STEPS if chunk else TP_STEPS)
+    return out
+
+
+@pytest.mark.parametrize("case", [c[0] for c in TP_CASES])
+def test_tensor_parallel_serving_matches_single_and_reference(
+        world, tp_single, case):
+    """Prefill and greedy decode of each TP case (the cache over "ctx":
+    over "model", or over ("data", "model") under the B = 1 rule; a chunk
+    at offset 48; the int8 cache) on every rank: the logits of its rows
+    within 2e-4 of max |logit| of the port's single process and of the
+    reference's ``prefill`` / ``decode_step`` jitted under its act rules
+    on the same mesh, and the greedy tokens equal to both."""
+    jax_out, ranks, coords = world
+    want, want_tok = tp_single[case]
+    batch = dict((c[0], c[3]) for c in TP_CASES)[case]
+    ref, ref_tok = jax_out[f"tp_{case}"], jax_out[f"tp_{case}_tokens"]
+    scale = want.abs().max().item()
+    assert np.abs(want.numpy() - ref).max() <= TP_TOL * scale
+    np.testing.assert_array_equal(want_tok.numpy(), ref_tok)
+    for out, (d, m) in zip(ranks, coords):
+        got, tok = out[f"tp.{case}"]
+        rows = _rows(B, d) if batch > 1 else slice(0, 1)
+        err = (got - want[:, rows]).abs().max().item()
+        assert err <= TP_TOL * scale, (case, d, m, err, scale)
+        assert torch.equal(tok, want_tok[:, rows]), (case, d, m)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tensor_parallel_gradients_match_single(world, arch):
+    """``forward_train`` under tensor parallelism: each rank's logits (its
+    rows, whole vocab) within 2e-4 of the single process's, and every
+    leaf's gradient of <C, logits>, summed over "data", within 2e-4 of the
+    leaf's largest |gradient|: a split leaf's the rank's slice, a leaf
+    replicated over "model" (norms) whole and bit-equal on the ranks of
+    "model", none zero."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import param_rules, port_rules
+    _, ranks, coords = world
+    cfg = _tp_cfg(arch)
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.requires_grad_(True)
+    logits, _ = tm.forward_train(cfg, model, _tokens(cfg))
+    (logits * _cotangent(cfg)).sum().backward()
+    rules = port_rules(param_rules(cfg, InputShape("train", S, B, "train"),
+                                   False), cfg)
+    axes = tm.params.param_axes(cfg)
+    spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
+    split = 0
+    for r, (out, (d, m)) in enumerate(zip(ranks, coords)):
+        got = out[f"tp_grad.{arch}"]
+        scale = logits.abs().max().item()
+        assert (got["logits"] - logits[_rows(B, d)].detach()).abs().max() \
+            <= TP_TOL * scale
+        for name, q in model.named_parameters():
+            spec = logical_to_pspec(axes[name], rules, tuple(q.shape),
+                                    spec_mesh)
+            want = q.grad[local_slices(q.shape, spec, spec_mesh,
+                                       {"data": d, "model": m})]
+            g = got["grads"][name]
+            top = q.grad.abs().max().item()
+            assert top > 0, name
+            assert (g - want).abs().max().item() <= GRAD_TOL * top, \
+                (arch, r, name)
+            if "model" not in str(spec):
+                first = ranks[d * MESH[1]][f"tp_grad.{arch}"]["grads"][name]
+                assert torch.equal(g, first), (arch, r, name)
+            else:
+                split += 1
+    assert split > 0
+
+
+def _npz_members(path):
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+@pytest.mark.parametrize("name", ["kimi", "llama"])
+def test_sharded_checkpoint_is_the_whole_models(world, ckpt_dir, tmp_path,
+                                                name):
+    """C7: the checkpoint every rank saved of a sharded model (Kimi K2
+    SMOKE's experts over "model" and their d_ff over "data"; Llama SMOKE
+    under tensor parallelism) holds the whole model's: ``index.json`` and
+    every array of every ``.npz`` byte for byte equal to the whole
+    model's ``save`` (the zip headers carry the writing time, so the
+    members are compared); the reference's ``restore`` reads it into its
+    own tree, with the whole model's values; and the restore into a model
+    built under the same rules gave every rank its shards, bit-equal, at
+    their local shapes."""
+    from repro.models import init_params as jinit
+    from repro.training.checkpoint import restore as jrestore
+    from repro_torch.training import checkpoint
+    _, ranks, coords = world
+    cfg, rules = _ckpt_cases()[name]
+    whole = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    checkpoint.save(str(tmp_path / name), whole, step=7)
+    got, want = ckpt_dir / name, tmp_path / name
+    assert sorted(os.listdir(got)) == sorted(os.listdir(want))
+    assert (got / "index.json").read_bytes() \
+        == (want / "index.json").read_bytes()
+    for f in os.listdir(want):
+        if f.endswith(".npz"):
+            assert _npz_members(got / f) == _npz_members(want / f), f
+    jcfg = jget_config({"kimi": ARCH, "llama": "llama31_8b"}[name],
+                       smoke=True).replace(dtype="float32",
+                                           param_dtype="float32")
+    tree, step = jrestore(str(got), like=jinit(jcfg, jax.random.PRNGKey(0)))
+    assert step == 7
+    theirs = _flatten(jax.tree.map(np.asarray, tree))
+    for path, a in _flatten(tm.to_jax_params(cfg, whole)).items():
+        np.testing.assert_array_equal(theirs[path], a)
+    axes = tm.params.param_axes(cfg)
+    spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
+    shapes = [tuple(sl.stop - sl.start for sl in local_slices(
+        q.shape, logical_to_pspec(axes[n], rules, tuple(q.shape), spec_mesh),
+        spec_mesh, {"data": 0, "model": 0}))
+        for n, q in whole.named_parameters()]
+    assert shapes != [tuple(q.shape) for q in whole.parameters()]
+    for out in ranks:
+        step, same, local = out[f"ckpt.{name}"]
+        assert (step, same, local) == (7, True, shapes)
