@@ -9,21 +9,21 @@ The counterpart of the reference package's ``launch/dryrun.py``, which
 lowers and compiles the global step over 256 or 512 placeholder devices
 through XLA's SPMD pipeline.  PyTorch has no SPMD partitioner, and the
 port's models compute on each rank's local shards with explicit
-collectives (``launch.mesh.port_rules``: tensor parallelism and the
-context-split cache for the dense attention family, expert parallelism for
-the MoE archs), so the port's dry-run runs one rank's step itself:
+collectives (tensor parallelism and the context-split cache, FSDP of
+"embed", expert parallelism, all under the reference's own rule tables),
+so the port's dry-run runs one rank's step itself:
 
   * inside a ``fake`` process group of the production mesh's size (its
     collectives return at once and move nothing), made for the step and
     destroyed after it (``fake_group``);
   * with the parameters (``init_params(..., mesh, rules)`` under
-    ``port_rules(param_rules(...))``), the optimizer state
+    ``param_rules(...)``), the optimizer state
     (``adamw_init``), the caches (``abstract_state`` cut by
     ``shard_state``) and the inputs (``input_specs`` cut on the batch as
     the reference's ``_input_shardings`` cuts them) at the rank's shard
     shapes, all on ``meta``: nothing is allocated;
   * one ``prefill``, ``decode_step`` or ``make_train_step`` step under
-    ``axis_rules(port_rules(act_rules(...)), mesh)``, counted by
+    ``axis_rules(act_rules(...), mesh)``, counted by
     ``launch.roofline.count_step``.
 
 The step runs the plain versions of the attention and WKV6 kernels
@@ -56,8 +56,7 @@ from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, ModelConfig,
                                  get_config, input_specs,
                                  long_context_variant)
 from repro_torch.launch.mesh import (act_rules, batch_axes,
-                                     make_production_mesh, param_rules,
-                                     port_rules)
+                                     make_production_mesh, param_rules)
 from repro_torch.launch.roofline import (Roofline, count_step,
                                          model_flops_estimate)
 from repro_torch.models import decode_step, init_params, prefill
@@ -138,7 +137,6 @@ def build_dryrun(arch: str, shape_name: str, multi_pod: bool,
     if rules_override:
         rules_a = {**rules_a, **rules_override.get("act", {})}
         rules_p = {**rules_p, **rules_override.get("param", {})}
-    rules_a, rules_p = port_rules(rules_a, cfg), port_rules(rules_p, cfg)
 
     # on meta no values are drawn: the generator is not needed
     params = init_params(cfg, None, "meta", mesh, rules_p)

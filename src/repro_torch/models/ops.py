@@ -13,7 +13,10 @@ default and what the kernel path is compared with.  MLA, cross-attention,
 MoE and Mamba have no kernel in the reference either: they are plain
 torch ops on every device.  Under ``sharding.axis_rules(rules, mesh)``
 with "experts" on the mesh, ``apply_moe_ffn`` takes the reference's
-expert-parallel path over ``torch.distributed`` (``_moe_ep_path``).  Train mode (``forward_train``) has no state:
+expert-parallel path over ``torch.distributed`` (``_moe_ep_path``), and
+every mixer and FFN computes on the shards its build split over "heads",
+"kv_heads" and "ff" (column- / row-parallel, a split section below and in
+each layer's docstring).  Train mode (``forward_train``) has no state:
 attention runs over the sequence's own keys, through the prefill kernel
 at offset 0, and the recurrent layers start from zero.  An int8 KV cache
 is quantised on write (``_quant_kv``) and dequantised to the activation
@@ -36,9 +39,9 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models.params import _RWKV_LORA  # lora width shared with decls
 from repro_torch.models.params import built_axes
 from repro_torch.scan import scan
-from repro_torch.sharding import (all_gather, all_reduce, axes_size,
-                                  axis_group, current_mesh, current_rules,
-                                  logical_to_pspec, mesh_axes,
+from repro_torch.sharding import (_entry_axes, all_gather, all_reduce,
+                                  axes_size, axis_group, current_mesh,
+                                  current_rules, logical_to_pspec, mesh_axes,
                                   reduce_scatter, shard_index)
 
 NEG_INF = -2.0 ** 30
@@ -278,11 +281,8 @@ def _cache_layout(cfg: ModelConfig, mesh):
     spec = logical_to_pspec(("batch", "ctx", "kv_heads", None),
                             current_rules() or {}, None, mesh)
     spec = spec + (None,) * (3 - len(spec))
-
-    def axes(e):
-        return () if e is None else ((e,) if isinstance(e, str) else e)
-    ctx = _split_over(mesh, axes(spec[1]))
-    kv = _split_over(mesh, axes(spec[2]))
+    ctx = _split_over(mesh, _entry_axes(spec[1]))
+    kv = _split_over(mesh, _entry_axes(spec[2]))
     nkv = cfg.num_kv_heads
     if kv is None or nkv % kv.n:
         return ctx, (0, nkv)
@@ -310,20 +310,65 @@ def _attn_plan(cfg: ModelConfig, p, state, mesh) -> Optional[_AttnPlan]:
     return _AttnPlan(sq, skv, ctx, heads)
 
 
-def _heads(t, split: Optional[Split], lo: int, hi: int, dh: int,
-           partial: bool):
-    """Heads [lo, hi) of a (B, S, H dh) projection of which this rank holds
-    `split`'s columns (all of them when None): sliced where they lie in
-    the rank's columns, else from the columns gathered whole (``_Gather``,
-    `partial` as its)."""
+def _span(t, split: Optional[Split], lo: int, hi: int, partial: bool):
+    """Columns [lo, hi) of the whole last dim of `t` (an activation or a
+    leaf), of which this rank holds `split`'s shard (all of it when None):
+    sliced where they lie in the rank's shard, else from the shards
+    gathered whole (``_Gather``, `partial` as its)."""
     C = t.shape[-1]
     if split is not None:
         c0 = split.i * C
-        if c0 <= lo * dh and hi * dh <= c0 + C:
-            return t[..., lo * dh - c0:hi * dh - c0].unflatten(-1, (hi - lo,
-                                                                     dh))
-        t = _Gather.apply(t, split, 2, partial)
-    return t[..., lo * dh:hi * dh].unflatten(-1, (hi - lo, dh))
+        if c0 <= lo and hi <= c0 + C:
+            return t[..., lo - c0:hi - c0]
+        t = _Gather.apply(t, split, t.dim() - 1, partial)
+    return t[..., lo:hi]
+
+
+def _heads(t, split: Optional[Split], lo: int, hi: int, dh: int,
+           partial: bool):
+    """Heads [lo, hi) of a (B, S, H dh) projection of which this rank holds
+    `split`'s columns (``_span``)."""
+    return _span(t, split, lo * dh, hi * dh, partial).unflatten(
+        -1, (hi - lo, dh))
+
+
+def _cols(split: Optional[Split], C: int, whole: int) -> tuple[int, int]:
+    """[c0, c1) of a dim of `whole` of which this rank holds `split`'s C."""
+    return (0, whole) if split is None else (split.i * C, (split.i + 1) * C)
+
+
+def _cover(c0: int, c1: int, dh: int) -> tuple[int, int]:
+    """The heads of width `dh` that cover columns [c0, c1)."""
+    return c0 // dh, -(-c1 // dh)
+
+
+def _enter(x, split: Optional[Split]):
+    """``_Enter`` over `split`'s group; `x` itself where nothing is split."""
+    return x if split is None else _Enter.apply(x, split.group)
+
+
+def _leave(y, split: Optional[Split]):
+    """``_Leave`` over `split`'s group; `y` itself where nothing is split."""
+    return y if split is None else _Leave.apply(y, split.group)
+
+
+def _state_split(leaf, axes, dim: int, whole: int,
+                 mesh) -> Optional[Split]:
+    """How dim `dim` (of `whole` entries) of the rank's state `leaf`, of
+    logical `axes`, is cut under the active rules: ``shard_state``'s cut,
+    where a mapping that does not divide the dim is dropped."""
+    if mesh is None:
+        return None
+    shape = list(leaf.shape)
+    shape[dim] = whole
+    spec = logical_to_pspec(axes, current_rules() or {}, tuple(shape), mesh)
+    e = (spec + (None,) * len(axes))[dim]
+    sp = _split_over(mesh, _entry_axes(e))
+    if leaf.shape[dim] != whole // (1 if sp is None else sp.n):
+        raise ValueError(f"a state leaf of {tuple(leaf.shape)} under rules "
+                         f"that cut dim {dim} of {whole} over {e}: cut it "
+                         "with shard_state under the same (mesh, rules)")
+    return sp
 
 
 def _group_kv(k, v, q0: int, nq: int, k0: int, G: int):
@@ -345,36 +390,43 @@ def _dequant(vals, scales, dtype):
 def _write_owned(cfg: ModelConfig, state, k, v, ctx: ApplyCtx,
                  plan: _AttnPlan):
     """Write the new rows `k` / `v` (B, S, heads, D) of the heads the cache
-    holds, in place: with the cache split over its positions, only the
-    rows of the positions this rank holds (the host picks them from
-    ``ctx.write_idx``); an int8 cache gets values and scales."""
-    int8 = cfg.kv_cache_dtype == "int8"
+    holds, in place (``_write_rows``); an int8 cache gets values and
+    scales."""
     news = {}
     for name, new in (("k", k), ("v", v)):
-        if int8:
+        if cfg.kv_cache_dtype == "int8":
             vals, scales = _quant_kv(new)
             news[name], news[f"{name}_scale"] = vals, scales
         else:
             news[name] = new
-    if plan.ctx is None:
+    _write_rows(state, news, ctx, plan.ctx)
+
+
+def _write_rows(state, news: dict, ctx: ApplyCtx, cs: Optional[Split]):
+    """Write each of `news` (B, S, ...) into the cache of its name at the
+    chunk's offsets, in place: with the caches split over their positions
+    (`cs`), only the rows of the positions this rank holds (the host picks
+    them from ``ctx.write_idx``)."""
+    if cs is None:
         for name, new in news.items():
             _update_cache(state[name], new, ctx.write_idx, ctx.positions)
-    else:
-        L = state["k"].shape[1]
-        pos0 = plan.ctx.i * L
-        B, S = k.shape[:2]
-        pos = ctx.write_idx[:, None] + np.arange(S)[None]
-        if not ((pos >= 0) & (pos < L * plan.ctx.n)).all():
-            raise IndexError(f"cache write of {S} rows at "
-                             f"{ctx.write_idx.tolist()} outside a cache of "
-                             f"{L * plan.ctx.n}")
-        bb, tt = np.nonzero((pos >= pos0) & (pos < pos0 + L))
-        if len(bb):
-            dev = k.device
-            bi, ti = (torch.as_tensor(a).to(dev) for a in (bb, tt))
-            rows = torch.as_tensor(pos[bb, tt] - pos0).to(dev)
-            for name, new in news.items():
-                state[name][bi, rows] = new[bi, ti].to(state[name].dtype)
+        return
+    name, first = next(iter(news.items()))
+    L = state[name].shape[1]
+    pos0 = cs.i * L
+    B, S = first.shape[:2]
+    pos = ctx.write_idx[:, None] + np.arange(S)[None]
+    if not ((pos >= 0) & (pos < L * cs.n)).all():
+        raise IndexError(f"cache write of {S} rows at "
+                         f"{ctx.write_idx.tolist()} outside a cache of "
+                         f"{L * cs.n}")
+    bb, tt = np.nonzero((pos >= pos0) & (pos < pos0 + L))
+    if len(bb):
+        dev = first.device
+        bi, ti = (torch.as_tensor(a).to(dev) for a in (bb, tt))
+        rows = torch.as_tensor(pos[bb, tt] - pos0).to(dev)
+        for name, new in news.items():
+            state[name][bi, rows] = new[bi, ti].to(state[name].dtype)
 
 
 def _cache_read(cfg: ModelConfig, state, dtype, plan: _AttnPlan,
@@ -511,32 +563,111 @@ def _apply_attn_tp(cfg: ModelConfig, p, x, state, ctx: ApplyCtx,
 # The reference routes it through no kernel (its _sdpa and einsums).
 # ---------------------------------------------------------------------------
 
+def _ctx_split(mesh, axes) -> Optional[Split]:
+    """The Split of a cache's positions under the active rules: the "ctx"
+    entry of the cache leaf's spec (`axes`), taken as given
+    (``models.params.shard_state`` refuses one that does not divide)."""
+    if mesh is None:
+        return None
+    spec = logical_to_pspec(axes, current_rules() or {}, None, mesh)
+    return _split_over(mesh, _entry_axes(
+        (spec + (None,) * len(axes))[axes.index("ctx")]))
+
+
+def _same_split(cfg: ModelConfig, p, mesh, names) -> Optional[Split]:
+    """The one Split of leaves `names` (name, dim), all cut alike over one
+    group or all whole; the layer's tensor-parallel code takes nothing
+    else."""
+    splits = [leaf_split(p, n, d, mesh) for n, d in names]
+    if any((sp is None) != (splits[0] is None) or (
+            sp is not None and (sp.group, sp.n) != (splits[0].group,
+                                                     splits[0].n))
+           for sp in splits):
+        raise NotImplementedError(
+            f"{cfg.name}: {[n for n, _ in names]} split unalike "
+            f"({splits})")
+    return splits[0]
+
+
+def _mla_partial(scores, ccf, cs: Split):
+    """Absorbed decode over this rank's slice of the latent cache: scores
+    (B, H, 1, L) masked with NEG_INF, ccf (B, L, r) -> the slices' latent
+    outputs merged by their log-sum-exp weights (``merge_decode_partials``
+    of the (o, lse) gathered over the split), (B, 1, H, r) f32.  A slice
+    with no live position has lse NEG_INF + log L and weighs nothing."""
+    m = scores.amax(-1, keepdim=True)
+    pe = torch.exp(scores - m)
+    den = pe.sum(-1)                                     # (B, H, 1)
+    o = torch.einsum("bhsl,blr->bhr", pe, ccf) / den
+    lse = m[..., 0, 0] + torch.log(den[..., 0])          # (B, H)
+    o = all_gather(o.contiguous(), cs.group, cs.n)
+    lse = all_gather(lse.contiguous(), cs.group, cs.n)
+    return kref.merge_decode_partials(o, lse)[:, None]
+
+
 def _apply_mla(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    """Under a mesh whose build split the heads (``wq``, ``w_uk``,
+    ``w_uv`` columns and ``wo`` rows over "heads") the rank computes the
+    heads covering its ``wo`` rows (a projection whose columns cut a head
+    is gathered, ``_span``) and ``wo`` is row-parallel (``_Leave``);
+    ``w_dkv`` and ``kv_norm`` stay whole, so c_kv / k_rope are whole on
+    every rank.  A latent cache split over its positions ("ctx") is
+    written by the owner of each row; a prompt at offset 0 attends its
+    fresh rows, a later chunk the cache gathered whole, and decode scores
+    every head against the rank's positions and merges the slices
+    (``_mla_partial``)."""
     B, S, _ = x.shape
     nq = cfg.num_heads
     nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     lora = cfg.kv_lora_rank
+    mesh = current_mesh()
+    so = _same_split(cfg, p, mesh, (("wq", 1), ("w_uk", 1), ("w_uv", 1),
+                                    ("wo", 0)))
+    cs = None if state is None else _ctx_split(mesh, ("batch", "ctx",
+                                                      "kv_lora"))
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
-    q = (h @ p.wq).reshape(B, S, nq, nope + rope)
-    q_nope = q[..., :nope]
-    q_rope = apply_rope(q[..., nope:], ctx.positions, cfg.rope_theta)
+    q = _enter(h, so) @ p.wq                             # the rank's columns
     ckr = h @ p.w_dkv                                    # (B, S, lora+rope)
     c_kv = rmsnorm(ckr[..., :lora], p.kv_norm)
     k_rope = apply_rope(ckr[..., None, lora:], ctx.positions,
                         cfg.rope_theta)[:, :, 0]         # (B, S, rope)
     scale = (nope + rope) ** -0.5
+    # the rank's wo rows [r0, r1) and the heads [qa, qb) scored: those
+    # covering the rows, or every head against a slice of the positions
+    r0, r1 = _cols(so, p.wo.shape[0], nq * vdim)
+    ra, rb = _cover(r0, r1, vdim)
+    split_decode = ctx.mode == "decode" and cs is not None
+    qa, qb = (0, nq) if split_decode else (ra, rb)
+    partial = so is not None
+    q = _heads(q, so, qa, qb, nope + rope, partial)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], ctx.positions, cfg.rope_theta)
+    w_uk = _span(p.w_uk, so, qa * nope, qb * nope, partial).reshape(
+        lora, qb - qa, nope)
+    w_uv = _span(p.w_uv, so, ra * vdim, rb * vdim, partial).reshape(
+        lora, rb - ra, vdim)
 
     if ctx.mode == "train":
         cc, kr, k_pos = c_kv, k_rope, ctx.positions
-    else:
+    elif cs is None:
         _update_cache(state["c_kv"], c_kv, ctx.write_idx, ctx.positions)
         _update_cache(state["k_rope"], k_rope, ctx.write_idx, ctx.positions)
         cc, kr = state["c_kv"], state["k_rope"]
         k_pos = torch.arange(cc.shape[1], device=x.device)[None]
+    else:
+        _write_rows(state, {"c_kv": c_kv, "k_rope": k_rope}, ctx, cs)
+        L = state["c_kv"].shape[1]
+        if split_decode:
+            cc, kr = state["c_kv"], state["k_rope"]
+            k_pos = cs.i * L + torch.arange(L, device=x.device)[None]
+        elif not ctx.write_idx.any():
+            cc, kr, k_pos = c_kv, k_rope, ctx.positions
+        else:
+            cc, kr = (all_gather(state[n], cs.group, cs.n).movedim(0, 1)
+                      .flatten(1, 2) for n in ("c_kv", "k_rope"))
+            k_pos = torch.arange(L * cs.n, device=x.device)[None]
     mask = _causal_mask(ctx.positions, k_pos, ctx.lengths)  # (B,1,1,S,L)
 
-    w_uk = p.w_uk.reshape(lora, nq, nope)
-    w_uv = p.w_uv.reshape(lora, nq, vdim)
     if ctx.mode == "decode":
         # absorbed: score against the latent cache directly
         ccf = cc.float()
@@ -546,17 +677,23 @@ def _apply_mla(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
                                  kr.float())) * scale
         scores = torch.where(mask[:, 0], scores,
                              torch.tensor(NEG_INF, device=x.device))
-        probs = torch.softmax(scores, dim=-1)
-        o_lat = torch.einsum("bhsl,blr->bshr", probs, ccf)
+        if split_decode:
+            o_lat = _mla_partial(scores, ccf, cs)[:, :, ra:rb]
+        else:
+            probs = torch.softmax(scores, dim=-1)
+            o_lat = torch.einsum("bhsl,blr->bshr", probs, ccf)
         out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv.float()).to(x.dtype)
     else:
+        cc, kr = _enter(cc, so), _enter(kr, so)
         k_nope = torch.einsum("blr,rhn->blhn", cc, w_uk.to(cc.dtype))
         v = torch.einsum("blr,rhv->blhv", cc, w_uv.to(cc.dtype))
         k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
-            -1, -1, nq, -1)], -1)
+            -1, -1, qb - qa, -1)], -1)
         q_full = torch.cat([q_nope, q_rope], -1)
         out = _sdpa(q_full, k_full, v, mask, scale)
-    out = out.reshape(B, S, nq * vdim) @ p.wo
+    out = out.reshape(B, S, (rb - ra) * vdim)[..., r0 - ra * vdim:
+                                              r1 - ra * vdim]
+    out = _leave(out @ p.wo, so)
     return out.to(x.dtype), state
 
 
@@ -567,25 +704,59 @@ def _apply_mla(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
 def apply_cross_attn(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     """Attention from the text to the image embeddings.  Prefill projects
     ``ctx.image_embeds`` to k / v (k normed) and keeps them in the state;
-    decode reads them back.  The output is scaled by tanh(gate)."""
+    decode reads them back.  The output is scaled by tanh(gate).
+
+    Under a mesh whose build split the heads, as ``_apply_attn_tp``: q / k
+    / v column-parallel, the query heads covering the rank's ``wq``
+    columns and their kv heads (a projection whose columns cut a head
+    gathered), ``wo`` row-parallel; the state holds the kv heads of its
+    cut over "kv_heads" (all of them where that does not divide)."""
     B, S, _ = x.shape
     dh, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    G = nq // nkv
+    mesh = current_mesh()
+    sq, skv = leaf_split(p, "wq", 1, mesh), leaf_split(p, "wk", 1, mesh)
+    if skv is not None and (sq is None or sq.group != skv.group):
+        raise NotImplementedError(
+            f"{cfg.name}: kv projections split where the q projection is "
+            "not, or over other axes")
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
-    q = rmsnorm((h @ p.wq).reshape(B, S, nq, dh), p.q_norm)
+    c0, c1 = _cols(sq, p.wq.shape[1], nq * dh)
+    qa, qb = _cover(c0, c1, dh)
+    ka, kb = qa // G, (qb - 1) // G + 1
+    partial = sq is not None
+    # the per-head norms' weights are whole, used rank by rank
+    q = rmsnorm(_heads(_enter(h, sq) @ p.wq, sq, qa, qb, dh, partial),
+                _enter(p.q_norm, sq))
+    sx = None if state is None else _state_split(
+        state["xk"], ("batch", None, "kv_heads", None), 2, nkv, mesh)
+    wa, wb = _cols(sx, nkv // (1 if sx is None else sx.n), nkv)
     if ctx.mode == "decode":
-        k, v = state["xk"], state["xv"]
+        k, v, k0 = state["xk"], state["xv"], wa
+        if not wa <= ka < kb <= wb:
+            raise NotImplementedError(
+                f"{cfg.name}: query heads [{qa}, {qb}) read kv heads "
+                f"[{ka}, {kb}), the rank's state holds [{wa}, {wb})")
     else:
         if ctx.image_embeds is None:
             raise ValueError(f"{cfg.name}: a cross-attention prefill needs "
                              "image_embeds")
         ie = ctx.image_embeds.to(x.dtype)
-        k = rmsnorm((ie @ p.wk).reshape(B, -1, nkv, dh), p.k_norm)
-        v = (ie @ p.wv).reshape(B, -1, nkv, dh)
+        k0, kn = (ka, kb) if state is None else (min(ka, wa), max(kb, wb))
+
+        def proj(w):
+            y = _enter(ie, skv) @ w if skv is not None \
+                else _enter(ie @ w, sq)
+            return _heads(y, skv, k0, kn, dh, partial)
+        k = rmsnorm(proj(p.wk), _enter(p.k_norm, sq))
+        v = proj(p.wv)
         if state is not None:
-            state["xk"].copy_(k)
-            state["xv"].copy_(v)
+            state["xk"].copy_(k[:, :, wa - k0:wb - k0])
+            state["xv"].copy_(v[:, :, wa - k0:wb - k0])
+    k, v = _group_kv(k, v, qa, qb - qa, k0, G)
     out = _sdpa(q, k, v, None, dh ** -0.5)
-    out = out.reshape(B, S, nq * dh) @ p.wo
+    out = out.reshape(B, S, (qb - qa) * dh)[..., c0 - qa * dh:c1 - qa * dh]
+    out = _leave(out @ p.wo, sq)
     out = torch.tanh(p.gate.float()).to(x.dtype) * out
     return out.to(x.dtype), state
 
@@ -909,7 +1080,9 @@ def _moe_ep_path(cfg: ModelConfig, p, h, mesh, ep_axes):
 def apply_moe_ffn(cfg: ModelConfig, p, x):
     """Routed experts plus the shared ones.  Returns (out, aux).  Takes the
     expert-parallel path exactly where the reference does: a mesh is
-    active, "experts" maps to its axes of size > 1, and E divides by it."""
+    active, "experts" maps to its axes of size > 1, and E divides by it.
+    The shared experts are a dense FFN, tensor-parallel where the build
+    split their d_ff; the router is whole on every rank."""
     m = cfg.moe
     h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
     mesh = current_mesh()
@@ -930,7 +1103,13 @@ def apply_moe_ffn(cfg: ModelConfig, p, x):
             cfg, p, h, (axis_group(mesh, b_axes), n) if n > 1 else None)
         y = _moe_dense_path(cfg, p, h, top_p, top_i)
     if m.num_shared:
-        y = y + (_act(h @ p.ws_gate, cfg.act) * (h @ p.ws_up)) @ p.ws_down
+        # column- / row-parallel over the build's "ff" split: the partial
+        # output summed over its group once
+        ss = _same_split(cfg, p, mesh, (("ws_gate", 1), ("ws_up", 1),
+                                        ("ws_down", 0)))
+        hs = _enter(h, ss)
+        y = y + _leave((_act(hs @ p.ws_gate, cfg.act) * (hs @ p.ws_up))
+                       @ p.ws_down, ss)
     if cfg.post_norms:
         y = rmsnorm(y, p.ln2_post, cfg.norm_plus_one)
     return y.to(x.dtype), aux
@@ -941,11 +1120,13 @@ def apply_moe_ffn(cfg: ModelConfig, p, x):
 # reference has no kernel for it either.
 # ---------------------------------------------------------------------------
 
-def _mamba_ssm_params(cfg: ModelConfig, p, xc):
-    """xc: (B, S, di) post-conv activations -> dt, B, C (f32)."""
+def _mamba_ssm_params(cfg: ModelConfig, p, xc, sf=None):
+    """xc: (B, S, di) post-conv activations -> dt, B, C (f32).  With `sf`
+    (``apply_mamba``'s channel split) the rank's rows of ``x_proj`` give a
+    partial x_dbl, summed over the split's group."""
     mc = cfg.mamba
     dtr = mc.dt_rank or -(-cfg.d_model // 16)
-    x_dbl = xc @ p.x_proj
+    x_dbl = _enter(_leave(xc @ p.x_proj, sf), sf)
     dt = F.softplus(x_dbl[..., :dtr] @ p.dt_w + p.dt_b.float())
     Bm = x_dbl[..., dtr:dtr + mc.d_state].float()
     Cm = x_dbl[..., dtr + mc.d_state:].float()
@@ -966,25 +1147,57 @@ def apply_mamba(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     """With ``ctx.lengths`` (a padded prompt or chunk) dt and x are zeroed
     past each row's length, so the state stops there, and the conv state is
     taken from the last d_conv - 1 *valid* inputs, in chunk-local
-    coordinates (absolute length minus chunk start)."""
+    coordinates (absolute length minus chunk start).
+
+    Under a mesh whose build split d_inner ("ff") the rank computes its
+    channels [c0, c1): ``in_proj``'s columns are [x | z] flattened, so a
+    rank's shard is not its channels' x and z (on 16 ranks, ranks 0-7 hold
+    only x): the leaf is gathered (``_Gather``, reduce-scatter backward)
+    and the rank takes its channels' columns of both halves.  ``conv_w``,
+    ``conv_b``, ``dt_w``, ``dt_b``, ``A_log``, ``D`` and the ssm / conv
+    state hold the rank's channels; ``x_proj`` is row-parallel, its (dt, B,
+    C) summed over the group (dt_rank + 2 d_state wide), and ``out_proj``
+    row-parallel."""
     B, S, d = x.shape
     mc = cfg.mamba
     di, K = mc.expand * d, mc.d_conv
+    mesh = current_mesh()
+    sf = _same_split(cfg, p, mesh, (
+        ("conv_w", 1), ("conv_b", 0), ("x_proj", 0), ("dt_w", 1),
+        ("dt_b", 0), ("A_log", 0), ("D", 0), ("out_proj", 0)))
+    si = leaf_split(p, "in_proj", 1, mesh)
+    c0, c1 = _cols(sf, p.conv_w.shape[1], di)
+    w_in = p.in_proj
+    if si is not None:
+        w_in = _Gather.apply(w_in, si, 1, sf is not None)
+    elif sf is not None:
+        w_in = _Enter.apply(w_in, sf.group)      # whole, used rank by rank
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
-    xz = h @ p.in_proj
-    xi, z = xz[..., :di], xz[..., di:]
+    if sf is None and si is None:
+        xz = h @ w_in
+        xi, z = xz[..., :di], xz[..., di:]
+    else:
+        hin = _enter(h, sf)
+        xi, z = hin @ w_in[:, c0:c1], hin @ w_in[:, di + c0:di + c1]
+    n = c1 - c0
     if state is None:
-        conv0 = torch.zeros((B, K - 1, di), dtype=x.dtype, device=x.device)
-        hs = torch.zeros((B, di, mc.d_state), dtype=torch.float32,
+        conv0 = torch.zeros((B, K - 1, n), dtype=x.dtype, device=x.device)
+        hs = torch.zeros((B, n, mc.d_state), dtype=torch.float32,
                          device=x.device)
     else:
+        for name, dim in (("ssm", 1), ("conv", 2)):
+            if state[name].shape[dim] != n:
+                raise ValueError(
+                    f"{cfg.name}: the {name} state holds "
+                    f"{state[name].shape[dim]} channels, the rank computes "
+                    f"{n}: cut it with shard_state under the same rules")
         conv0, hs = state["conv"].to(x.dtype), state["ssm"].float()
-    xp = torch.cat([conv0, xi], dim=1)                   # (B, K-1+S, di)
+    xp = torch.cat([conv0, xi], dim=1)                   # (B, K-1+S, n)
     xc = sum(xp[:, i:i + S] * p.conv_w[i] for i in range(K)) + p.conv_b
     conv1 = xp[:, S:]
     xc = F.silu(xc)
-    dt, Bm, Cm = _mamba_ssm_params(cfg, p, xc)
-    A = -torch.exp(p.A_log.float())                      # (di, ds)
+    dt, Bm, Cm = _mamba_ssm_params(cfg, p, xc, sf)
+    A = -torch.exp(p.A_log.float())                      # (n, ds)
     xcf = xc.float()
     if ctx.lengths is not None:
         m = (ctx.positions < ctx.lengths[:, None]).float()[:, :, None]
@@ -994,7 +1207,7 @@ def apply_mamba(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
         conv1 = xp[torch.arange(B, device=x.device)[:, None], rows]
     hs, y = scan(_ssm_step, hs, (dt, Bm, xcf, Cm), S, consts=(A,))
     y = y + xcf * p.D.float()
-    out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
+    out = _leave((y.to(x.dtype) * F.silu(z)) @ p.out_proj, sf)
     if state is not None:
         state["ssm"].copy_(hs)
         state["conv"].copy_(conv1)
@@ -1035,10 +1248,27 @@ def _last_valid(h, ctx: ApplyCtx):
 
 def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     """With no state (train mode) the shift and the WKV state start at
-    zero and nothing is written."""
+    zero and nothing is written.
+
+    Under a mesh whose build split the heads ("heads": ``wr``, ``wk``,
+    ``wv``, ``wg`` columns, ``wo`` rows) r / k / v / g are column-parallel
+    and ``wo`` row-parallel; the token shift, the mixes and the decay are
+    whole on every rank, and the decay, ``u``, ``lnx_g`` and ``lnx_b`` are
+    sliced to the rank's heads, so WKV6 runs on them alone (with its
+    state cut over "heads").  Where the columns cut a head, r / k / v are
+    gathered (``_heads``): WKV6 runs on the heads covering the rank's
+    columns, or on all of them with a state, which then stays whole on
+    every rank."""
     B, S, d = x.shape
     K = cfg.rwkv_head_dim
     H = d // K
+    sh = _same_split(cfg, p, current_mesh(), (
+        ("wr", 1), ("wk", 1), ("wv", 1), ("wg", 1), ("wo", 0)))
+    c0, c1 = _cols(sh, p.wr.shape[1], d)
+    lo, hi = _cover(c0, c1, K)
+    if state is not None and (c0 % K or c1 % K):
+        lo, hi = 0, H
+    nh = hi - lo
     h = rmsnorm(x, p.ln1, cfg.norm_plus_one)
     shift0 = x.new_zeros(B, d) if state is None else state["shift_t"]
     sx = _token_shift(h, shift0.to(h.dtype))
@@ -1048,32 +1278,45 @@ def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
     xw, xk, xv, xr, xg = [
         h + sx * (getattr(p, f"mu_{n}") + mixes[:, :, i])
         for i, n in enumerate(("w", "k", "v", "r", "g"))]
-    r = (xr @ p.wr).reshape(B, S, H, K).float()
-    k = (xk @ p.wk).reshape(B, S, H, K).float()
-    v = (xv @ p.wv).reshape(B, S, H, K).float()
-    g = F.silu(xg @ p.wg)
+    partial = sh is not None
+
+    def heads(xin, w):
+        return _heads(_enter(xin, sh) @ w, sh, lo, hi, K, partial).float()
+    r, k, v = heads(xr, p.wr), heads(xk, p.wk), heads(xv, p.wv)
+    g = F.silu(_enter(xg, sh) @ p.wg)                    # the rank's columns
     wdec = p.w0.float() + (torch.tanh(xw @ p.decay_A) @ p.decay_B).float()
-    w = torch.exp(-torch.exp(wdec)).reshape(B, S, H, K)
-    u = p.u.float().reshape(H, K)
+    w = torch.exp(-torch.exp(_enter(wdec, sh)[..., lo * K:hi * K])).reshape(
+        B, S, nh, K)
+    u = _enter(p.u.float(), sh)[lo * K:hi * K].reshape(nh, K)
     if ctx.lengths is not None:
         # padded prefill: no decay, no writes past each row's valid length
         m = (ctx.positions < ctx.lengths[:, None])[:, :, None, None]
         w = torch.where(m, w, 1.0)
         k = k * m
-    s0 = (torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
-          if state is None else state["wkv"].float())
+    if state is None:
+        s0 = torch.zeros((B, nh, K, K), dtype=torch.float32,
+                         device=x.device)
+    else:
+        if state["wkv"].shape[1] != nh:
+            raise ValueError(
+                f"{cfg.name}: the wkv state holds {state['wkv'].shape[1]} "
+                f"heads, the rank computes {nh}: cut it with shard_state "
+                "under the same rules")
+        s0 = state["wkv"].float()
     if S == 1:
         y, sT = rwkv_wkv(r, k, v, w, u, s0)
     elif ctx.plain_kernels:
         y, sT = rwkv_wkv_chunked(r, k, v, w, u, s0)
     else:
-        y, sT = kops.wkv6_op(r, k, v, w, u, s0)
+        y, sT = kops.wkv6_op(*(t.contiguous() for t in (r, k, v, w, u)), s0)
     # per-head groupnorm
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(B, S, d) * p.lnx_g.float() + p.lnx_b.float()
-    out = (y.to(x.dtype) * g) @ p.wo
+    y = y.reshape(B, S, nh * K) * _enter(p.lnx_g.float(), sh)[lo * K:hi * K] \
+        + _enter(p.lnx_b.float(), sh)[lo * K:hi * K]
+    y = y[..., c0 - lo * K:c1 - lo * K]
+    out = _leave((y.to(x.dtype) * g) @ p.wo, sh)
     if state is not None:
         state["wkv"].copy_(sT)
         state["shift_t"].copy_(_last_valid(h, ctx))
@@ -1081,14 +1324,17 @@ def apply_rwkv_tm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
 
 
 def apply_rwkv_cm(cfg: ModelConfig, p, x, state, ctx: ApplyCtx):
+    """Under a mesh whose build split d_ff ("ff"), ``wk_cm`` is
+    column-parallel and ``wv_cm`` row-parallel; ``wr_cm`` stays whole."""
     h = rmsnorm(x, p.ln2, cfg.norm_plus_one)
     shift0 = x.new_zeros(x.shape[0], x.shape[2]) if state is None \
         else state["shift_c"]
     sx = _token_shift(h, shift0.to(h.dtype))
     xk = h + sx * p.mu_ck
     xr = h + sx * p.mu_cr
-    kk = torch.square(torch.relu(xk @ p.wk_cm))
-    out = torch.sigmoid(xr @ p.wr_cm) * (kk @ p.wv_cm)
+    sf = _same_split(cfg, p, current_mesh(), (("wk_cm", 1), ("wv_cm", 0)))
+    kk = torch.square(torch.relu(_enter(xk, sf) @ p.wk_cm))
+    out = torch.sigmoid(xr @ p.wr_cm) * _leave(kk @ p.wv_cm, sf)
     if state is not None:
         state["shift_c"].copy_(_last_valid(h, ctx))
     return out.to(x.dtype), state

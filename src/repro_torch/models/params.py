@@ -32,8 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.sharding import (all_gather, axis_group, local_shard,
-                                  local_slices, logical_to_pspec, mesh_axes)
+from repro_torch.sharding import (_entry_axes, all_gather, axis_group,
+                                  local_shard, local_slices, logical_to_pspec,
+                                  mesh_axes)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}
@@ -274,8 +275,7 @@ def built_axes(mod: nn.Module, name: str, mesh) -> Optional[tuple]:
     lf = mod.leaves[name]
     spec = logical_to_pspec(lf.axes, rules, lf.shape, mesh)
     spec = spec + (None,) * (len(lf.shape) - len(spec))
-    return tuple(() if e is None else ((e,) if isinstance(e, str)
-                                       else tuple(e)) for e in spec)
+    return tuple(_entry_axes(e) for e in spec)
 
 
 def _leaf_values(lf: Leaf, generator, device) -> torch.Tensor:
@@ -352,8 +352,14 @@ def whole_leaf(mod: nn.Module, name: str) -> torch.Tensor:
     mesh = mod.shard_mesh
     if mesh is None:
         return t
+    return _gathered(t, built_axes(mod, name, mesh), mesh)
+
+
+def _gathered(t: torch.Tensor, dims, mesh) -> torch.Tensor:
+    """`t`, one rank's shard, gathered whole: dim d over the mesh axes
+    `dims[d]` (a tuple of names each), in the ranks' shard order."""
     sizes = mesh_axes(mesh)
-    for dim, axes in enumerate(built_axes(mod, name, mesh)):
+    for dim, axes in enumerate(dims):
         axes = tuple(a for a in axes if sizes[a] > 1)
         if axes:
             n = 1
@@ -558,6 +564,23 @@ def shard_state(cfg: ModelConfig, state, mesh, rules):
                         f"{n}: a cache of {t.shape[d]} positions does not "
                         f"split over {want[d]}")
             leaves[n] = local_shard(t, spec, mesh)
+        out.append(leaves)
+    return out
+
+
+def whole_state(cfg: ModelConfig, state, mesh, rules, batch: int,
+                max_len: int):
+    """The inverse of ``shard_state``: the whole state of `batch` rows of
+    `max_len` positions of which `state` is this rank's shard under
+    (`mesh`, `rules`), each leaf gathered over the groups that split it.
+    Collective: every rank of the mesh calls it."""
+    out = []
+    for spec, st in zip(cfg.layer_specs, state):
+        leaves = {}
+        for n, lf in _layer_state_leaves(cfg, spec, batch, max_len).items():
+            ps = logical_to_pspec(lf.axes, rules, lf.shape, mesh)
+            ps = ps + (None,) * (len(lf.shape) - len(ps))
+            leaves[n] = _gathered(st[n], [_entry_axes(e) for e in ps], mesh)
         out.append(leaves)
     return out
 

@@ -9,7 +9,10 @@ split (``init_params(..., mesh, rules)``) embeds vocab-parallel (each rank
 looks up the tokens of its rows, the rows summed over the split) and
 unembeds to its vocab slice of the logits; the entry points still return
 whole logits, gathered (``forward_train_local`` keeps the slice, for the
-vocab-parallel loss).
+vocab-parallel loss).  A model built with its "embed" dim split over the
+FSDP axes (the reference's ``param_rules`` for train and prefill) gathers
+each layer's leaves, and the embedding and head, before it uses them
+(``_fsdp``).
 Lengths, chunk starts and cache lengths are taken on the host, where the
 serving loop keeps them.  A vision model's prefill takes the image as
 ``image_embeds`` (B, num_vision_tokens, d_model).  The serving entry
@@ -40,7 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ops
 from repro_torch.models.ops import ApplyCtx
 from repro_torch.models.params import DTYPES, Transformer, init_state
-from repro_torch.sharding import current_mesh
+from repro_torch.sharding import axis_rules, current_mesh, current_rules
 
 
 def _host_ints(x) -> np.ndarray:
@@ -53,10 +56,51 @@ def _tokens(x, device) -> torch.Tensor:
     return x.to(device).long()
 
 
+class _Gathered:
+    """A module read with some of its leaves replaced by their gathered
+    values (``_fsdp``), and the rules those say it was built under."""
+
+    def __init__(self, mod, leaves: dict, rules: dict):
+        self._mod = mod
+        self.__dict__.update(leaves)
+        self.shard_rules = rules
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+def _fsdp(mod, names=None):
+    """`mod` with each of its leaves (of `names`, or all) whose "embed" dim
+    the build split over the FSDP axes gathered whole along that dim
+    (``ops._Gather``: backward, the gradient summed over those ranks and
+    cut back to this rank's shard, a reduce-scatter), read as a module
+    built with "embed" whole; `mod` itself where no leaf is so split.  A
+    gathered leaf is still the rank's tensor-parallel shard, so the layer
+    code after it sees what it sees without FSDP.  Expert d_ff FSDP
+    ("expert_ff") is not touched: ``ops._expert_weights`` gathers it."""
+    mesh = current_mesh()
+    rules = getattr(mod, "shard_rules", None)
+    if mesh is None or not rules or not rules.get("embed"):
+        return mod
+    got = {}
+    for name, lf in mod.leaves.items():
+        if "embed" in lf.axes and (names is None or name in names):
+            dim = lf.axes.index("embed")
+            sp = ops.leaf_split(mod, name, dim, mesh)
+            if sp is not None:
+                got[name] = ops._Gather.apply(getattr(mod, name), sp, dim,
+                                              True)
+    return _Gathered(mod, got, {**rules, "embed": ()}) if got else mod
+
+
 def _apply_layer(cfg: ModelConfig, layer, x, state, ctx: ApplyCtx):
     """Residual layer = mixer (attention or MLA, cross-attention, Mamba or
     RWKV-6 time-mix) + FFN (dense, MoE or RWKV channel-mix), as its
-    LayerSpec says.  Returns (x, the MoE aux loss or 0.0)."""
+    LayerSpec says, on the layer's leaves with their FSDP shards gathered
+    (``_fsdp``: under ``remat`` the gather reruns in the checkpointed
+    block's backward, so one block's gathered leaves live at a time).
+    Returns (x, the MoE aux loss or 0.0)."""
+    layer = _fsdp(layer)
     lctx = dataclasses.replace(ctx, window=layer.window)
     mixer = {"attn": ops.apply_attn, "local_attn": ops.apply_attn,
              "cross_attn": ops.apply_cross_attn, "mamba": ops.apply_mamba,
@@ -74,6 +118,7 @@ def _apply_layer(cfg: ModelConfig, layer, x, state, ctx: ApplyCtx):
 
 
 def _embed(cfg: ModelConfig, params: Transformer, tokens):
+    params = _fsdp(params, ("embed",))
     sv = ops.leaf_split(params, "embed", 0, current_mesh())
     if sv is None:
         x = params.embed[tokens]
@@ -94,6 +139,8 @@ def _embed(cfg: ModelConfig, params: Transformer, tokens):
 def _unembed_local(cfg: ModelConfig, params: Transformer, x):
     """(logits of this rank's vocab slice, f32 after the softcap; the
     vocab's Split, or None where the head is whole)."""
+    params = _fsdp(params, ("embed",) if cfg.tie_embeddings
+                   else ("lm_head",))
     x = ops.rmsnorm(x, params.final_norm, cfg.norm_plus_one)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     sv = ops.leaf_split(params, *(("embed", 0) if cfg.tie_embeddings
@@ -132,13 +179,27 @@ def _backbone(cfg: ModelConfig, params: Transformer, x, state,
     k, P = cfg.first_k_dense, len(cfg.block_pattern)
     layers = list(params.layers)
     x, aux = _apply_layers(cfg, layers[:k], x, 0.0, state[:k], ctx)
+    under = (current_rules(), current_mesh())
     for b in range(k, len(layers), P):
         run = (cfg, layers[b:b + P], x, aux, state[b:b + P], ctx)
         if remat:
-            x, aux = checkpoint(_apply_layers, *run, use_reentrant=False)
+            x, aux = checkpoint(_remat_block, under, *run,
+                                use_reentrant=False)
         else:
             x, aux = _apply_layers(*run)
     return x, aux
+
+
+def _remat_block(under, *run):
+    """``_apply_layers`` under the rules and mesh `under` that were active
+    at its forward: the checkpoint reruns it in the backward, which on a
+    card runs on autograd's device thread, where the thread-local
+    ``sharding.axis_rules`` of the caller is not active."""
+    rules, mesh = under
+    if rules is None:
+        return _apply_layers(*run)
+    with axis_rules(rules, mesh):
+        return _apply_layers(*run)
 
 
 def forward_train(cfg: ModelConfig, params: Transformer, tokens,

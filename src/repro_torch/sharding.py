@@ -10,8 +10,9 @@ is used twice), ``placements`` gives the DTensor placements of a spec, and
 ``local_shard`` cuts a whole tensor to one rank's shard.
 
 The reference's ``shard_map`` has no counterpart: in the port each rank
-holds its local shards and the sharded code (``models.ops``'s
-expert-parallel MoE) calls the collectives itself, over the process
+holds its local shards and the sharded code (``models.ops``'s tensor-
+and expert-parallel layers, ``models.transformer``'s FSDP gathers) calls
+the collectives itself, over the process
 groups of the mesh's axes (``axis_group``).  So ``shard`` is a no-op:
 there is no compiler to pass a sharding constraint to.
 """

@@ -132,20 +132,36 @@ def global_norm(tree, groups=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _mean(x, dim: int, split):
+    """The mean of `x` over dim `dim` of the whole leaf: with `split` =
+    (group, n) this rank holds one of n shards of that dim, and the sum is
+    taken over the group."""
+    if split is None:
+        return x.mean(dim=dim)
+    group, n = split
+    return all_reduce(x.sum(dim=dim), group) / (x.shape[dim] * n)
+
+
 @torch.no_grad()
-def _update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
+def _update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2,
+                 split=(None, None)):
     """The reference's ``upd`` for one leaf, in place: p, m and v (or its
-    row / col pair) take their new values."""
+    row / col pair) take their new values.  `split` says, for the leaf's
+    last dim and the one before it, how this rank's shard cuts it: None
+    (whole) or (group, n); the factored moment's row and column means are
+    then the whole leaf's, as the reference's under GSPMD."""
     g = g.float() * scale
     mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
     if isinstance(v, tuple):   # factored second moment
         vr, vc = v
+        last, second = split
         g2 = g.mul_(g)
-        vrf = cfg.b2 * vr.float() + (1 - cfg.b2) * g2.mean(dim=-1)
-        vcf = cfg.b2 * vc.float() + (1 - cfg.b2) * g2.mean(dim=-2)
+        vrf = cfg.b2 * vr.float() + (1 - cfg.b2) * _mean(g2, -1, last)
+        vcf = cfg.b2 * vc.float() + (1 - cfg.b2) * _mean(g2, -2, second)
         del g, g2
         vh = (vrf[..., None] * vcf[..., None, :]
-              / torch.clamp(vrf.mean(-1)[..., None, None], min=1e-30)) / bc2
+              / torch.clamp(_mean(vrf, -1, second)[..., None, None],
+                            min=1e-30)) / bc2
         vr.copy_(vrf)
         vc.copy_(vcf)
     else:
@@ -162,13 +178,16 @@ def _update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, bc1, bc2):
 
 
 def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
-                 norm_groups=None):
+                 norm_groups=None, splits=None):
     """Returns (params, new_state, metrics): `params` and the state's
     moments changed in place.  `grads` maps each of the parameters' names
     (a module's ``named_parameters``, or the dict's keys) to its
     gradient; a sharded leaf's gradient is this rank's shard, and
     `norm_groups` (``global_norm``'s `groups`) says where its other shards
-    are, so that the clip norm is the whole tree's."""
+    are, so that the clip norm is the whole tree's.  `splits` maps a
+    sharded leaf's name to how its last two dims are cut (last, the one
+    before), each None or (group, n), for the factored moment's means."""
+    splits = splits or {}
     gnorm = global_norm(grads, norm_groups)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else torch.ones(())
@@ -180,15 +199,18 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
         m, v = state.m[path], state.v[path]
         if kind == "one":
             _update_leaf(cfg, ts[0], grads[names[0]], m, v, scale, lr, bc1,
-                         bc2)
+                         bc2, splits.get(names[0], (None, None)))
         elif kind == "each":
             for t, n, mi, vi in zip(ts, names, m, v):
-                _update_leaf(cfg, t, grads[n], mi, vi, scale, lr, bc1, bc2)
+                _update_leaf(cfg, t, grads[n], mi, vi, scale, lr, bc1, bc2,
+                             splits.get(n, (None, None)))
         else:
+            # a layer's one dim is the stack's last, the layers before it
             with torch.no_grad():
                 p = torch.stack(ts)
                 _update_leaf(cfg, p, torch.stack([grads[n] for n in names]),
-                             m, v, scale, lr, bc1, bc2)
+                             m, v, scale, lr, bc1, bc2,
+                             (splits.get(names[0], (None,))[0], None))
                 for i, t in enumerate(ts):
                     t.copy_(p[i])
     return params, AdamWState(step, state.m, state.v), {

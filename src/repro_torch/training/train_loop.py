@@ -25,7 +25,11 @@ with its heads, d_ff and vocab split over "model") the gradient of a split
 leaf is the rank's shard's, and stays local; a leaf replicated over
 "model" gets the same whole gradient on every rank of it (the layers'
 ``_Enter`` all-reduces the gradient where replicated activations turn
-rank-specific), so it is summed over the batch axes only.  The loss never
+rank-specific), so it is summed over the batch axes only.  A leaf built
+with its "embed" dim over the FSDP axes (the batch axes) is gathered
+before use and its gradient reduce-scattered
+(``models.transformer._fsdp``): it arrives summed over them.  The factored second moment's row and column means are
+the whole leaf's (``adamw_update``'s `splits`).  The loss never
 gathers the (B, S, V) logits: ``lm_loss`` takes the cross-entropy of the
 rank's vocab slice, the row max, the sum of exps and the label's logit
 each reduced over the vocab's split, as the reference's ``log_softmax`` of
@@ -98,12 +102,14 @@ def _check_device(params, device):
 class _DataParallel:
     """How a step under a mesh makes the global batch's gradient: the
     number of batch shards and their group, and for each leaf's name the
-    group its gradient is summed over and the group of the ranks holding
-    its shards (for the clip norm)."""
+    group its gradient is summed over, the group of the ranks holding its
+    shards (for the clip norm) and how its last two dims are cut (for the
+    factored second moment, ``adamw_update``'s `splits`)."""
     n_batch: int
     batch: object
     reduce: dict
     norm: dict
+    splits: dict
 
 
 def _data_parallel(params) -> Optional[_DataParallel]:
@@ -115,21 +121,29 @@ def _data_parallel(params) -> Optional[_DataParallel]:
     sizes = mesh_axes(mesh)
     b_axes = tuple(a for a in (current_rules() or {}).get("batch", ())
                    if sizes.get(a, 1) > 1)
-    reduce, norm = {}, {}
+    reduce, norm, splits = {}, {}, {}
+
+    def cut(axes):
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        return (axis_group(mesh, axes), axes_size(mesh, axes)) if axes \
+            else None
     for i, mod in _leaf_modules(params):
         prefix = _prefix(i)
         for name in mod.leaves:
-            split = {a for dim in built_axes(mod, name, mesh) or ()
-                     for a in dim if sizes[a] > 1}
+            dims = built_axes(mod, name, mesh) or ()
+            split = {a for dim in dims for a in dim if sizes[a] > 1}
             over = tuple(a for a in b_axes if a not in split)
             if over:
                 reduce[prefix + name] = axis_group(mesh, over)
             if split:
                 norm[prefix + name] = axis_group(
                     mesh, tuple(a for a in sizes if a in split))
+                splits[prefix + name] = tuple(
+                    cut(dims[d]) if len(dims) >= -d else None
+                    for d in (-1, -2))
     return _DataParallel(axes_size(mesh, b_axes),
                          axis_group(mesh, b_axes) if b_axes else None,
-                         reduce, norm)
+                         reduce, norm, splits)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -164,8 +178,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 ce = all_reduce(ce, dp.batch) / dp.n_batch
             loss = ce + aux
         with torch.profiler.record_function("adamw_update"):
-            params, opt, om = adamw_update(opt_cfg, grads, opt, params,
-                                           None if dp is None else dp.norm)
+            params, opt, om = adamw_update(
+                opt_cfg, grads, opt, params, None if dp is None else dp.norm,
+                None if dp is None else dp.splits)
         del grads
         metrics = {"loss": loss.detach(), "ce": ce.detach(),
                    "aux": aux.detach(), **om}

@@ -112,13 +112,12 @@ def test_argument_bytes_are_the_local_shards(arch):
     "model" and the cache over "ctx", 8.39 GB a rank where whole leaves
     and cache took 134.2 GB."""
     from repro_torch.configs import INPUT_SHAPES
-    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    from repro_torch.launch.mesh import act_rules, param_rules
     with dryrun.fake_group(False):
         fn, args, cfg, mesh, rules_a, shape = dryrun.build_dryrun(
             arch, "decode_32k", multi_pod=False)
-        rules_p = port_rules(param_rules(cfg, INPUT_SHAPES["decode_32k"],
-                                         False), cfg)
-        assert rules_a == port_rules(act_rules(shape, False), cfg)
+        rules_p = param_rules(cfg, INPUT_SHAPES["decode_32k"], False)
+        assert rules_a == act_rules(shape, False)
         model = args[0]
         dt = DTYPES[cfg.param_dtype]
         want = sum(
@@ -156,3 +155,30 @@ def test_build_refuses_a_group_of_another_size():
             dryrun.build_dryrun("qwen2_0_5b", "decode_32k", multi_pod=False)
     finally:
         dist.destroy_process_group()
+
+
+def test_fsdp_takes_effect_in_a_train_step():
+    """``--fsdp on`` (``run_one(..., fsdp=True)``) builds every dense leaf
+    with its "embed" dim over "data" (16 ways on (16, 16)), as the
+    reference's ``param_rules`` says: a rank's argument bytes fall more
+    than tenfold (the norms stay whole), and the counted train step
+    gains one all-gather for each of a layer's 7 "embed" leaves in the
+    forward and again in the rematerialised backward, and the tied
+    embedding's in ``_embed`` and in the head, and one reduce-scatter of
+    each of their gradients (24 layers of qwen2-0.5b)."""
+    recs = {fsdp: dryrun.run_one("qwen2_0_5b", "train_4k", fsdp=fsdp,
+                                 verbose=False)
+            for fsdp in (False, True)}
+    off, on = recs[False], recs[True]
+    assert off["status"] == on["status"] == "ok"
+    assert 10 * on["memory"]["argument_bytes"] \
+        <= off["memory"]["argument_bytes"]
+
+    def count(rec, kind):
+        return rec["collectives"].get(kind, {"count": 0})["count"]
+    leaves = 7 * 24
+    assert count(on, "all-gather") - count(off, "all-gather") \
+        == 2 * leaves + 2
+    assert count(on, "reduce-scatter") - count(off, "reduce-scatter") \
+        == leaves + 2
+    assert not dist.is_initialized()

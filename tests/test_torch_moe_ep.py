@@ -19,7 +19,7 @@
 * tensor parallelism and the decode cache split over "ctx" (ROADMAP A18,
   ``models.ops._apply_attn_tp``): Llama, Qwen (bias, heads that do not
   divide 4) and Gemma-2 (a window across the cache's slices, softcaps)
-  SMOKE under ``port_rules(act_rules / param_rules, cfg)``: prefill and
+  SMOKE under the reference's ``act_rules`` / ``param_rules``: prefill and
   greedy decode steps with the cache over "model", the B = 1 rule (the
   cache over ("data", "model")), a chunk at a later offset and Llama's
   int8 cache, against the port's single process and the reference's
@@ -261,7 +261,6 @@ def _batch_rows(mesh, n_rows):
 def _rank_main(rank, tmpdir, ckpt_dir):
     """One rank: the layer cases, then Kimi K2 SMOKE's forward_train and
     gradients, then a forward at capacity factor 0.1; saves them all."""
-    from repro_torch.launch.mesh import port_rules
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(tmpdir, "store"), WORLD)
     dist.init_process_group("gloo", store=store, rank=rank,
@@ -311,8 +310,8 @@ def _rank_main(rank, tmpdir, ckpt_dir):
         out["aux_dense"] = aux.detach()
         out["gd_router"], out["gd_x"] = gd
 
-        rules = port_rules({"batch": ("data",), "experts": ("model",),
-                            "heads": ("model",), "expert_ff": ()})
+        rules = {"batch": ("data",), "experts": ("model",),
+                 "expert_ff": ()}
         cfg = _moe_cfg(100.0)
         model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                                mesh=mesh, rules=rules)
@@ -354,14 +353,14 @@ def _serve_and_build(mesh):
     (``init_params``, and ``from_jax_params`` of the whole model's tree)
     hold exactly the whole model's values."""
     from repro_torch.configs import InputShape
-    from repro_torch.launch.mesh import act_rules, port_rules
+    from repro_torch.launch.mesh import act_rules
     cfg = _moe_cfg(100.0)
     gen = torch.Generator()
     whole = tm.init_params(cfg, gen.manual_seed(0), "cpu")
-    rules = {"prefill": port_rules({"batch": (), "experts": ("model",),
-                                    "expert_ff": ()}),
-             "decode": port_rules(act_rules(InputShape(
-                 "decode", MAX_LEN, B, "decode"), multi_pod=False))}
+    rules = {"prefill": {"batch": (), "experts": ("model",),
+                         "expert_ff": ()},
+             "decode": act_rules(InputShape("decode", MAX_LEN, B, "decode"),
+                                 multi_pod=False)}
     out = {"same_values": True}
     axes = tm.params.param_axes(cfg)
     models = {}
@@ -408,8 +407,7 @@ def _serve_and_build(mesh):
 #: (arch, the rules it is built under, the rules it runs under)
 TRAIN_RULES = {"batch": ("data",), "experts": ("model",), "expert_ff": ()}
 DENSE_MOE = {"batch": ("data",), "experts": (), "expert_ff": ()}
-#: tensor parallelism over "model" (kept by ``port_rules`` for the dense
-#: attention family)
+#: tensor parallelism over "model"
 TP_TRAIN = {**TRAIN_RULES, "heads": ("model",), "kv_heads": ("model",),
             "ff": ("model",), "vocab": ("model",)}
 TRAIN_CASES = {
@@ -447,14 +445,12 @@ def _sharded_train(mesh):
     rows under the mesh: the gradients the step hands to
     ``adamw_update`` (its reduced ones), the metrics and the updated
     leaves."""
-    from repro_torch.launch.mesh import port_rules
     from repro_torch.training import adamw_init, make_train_step, train_loop
     out = {}
     for case, (arch, built, rules) in TRAIN_CASES.items():
         cfg = _train_cfg(arch)
-        rules = port_rules(rules, cfg)
         model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                               mesh, port_rules(built, cfg))
+                               mesh, built)
         opt = adamw_init(model, _train_opt())
         step = make_train_step(cfg, _train_opt(), device="cpu")
         grads, update = {}, train_loop.adamw_update
@@ -525,10 +521,9 @@ def _tp_weights():
 
 def _tp_rules(cfg, batch):
     from repro_torch.configs import InputShape
-    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    from repro_torch.launch.mesh import act_rules, param_rules
     shape = InputShape("decode", TP_MAX_LEN, batch, "decode")
-    return (port_rules(act_rules(shape, False), cfg),
-            port_rules(param_rules(cfg, shape, False), cfg))
+    return act_rules(shape, False), param_rules(cfg, shape, False)
 
 
 def _tp_run(cfg, model, toks, lens, chunk, steps, mesh=None, rules=None,
@@ -587,18 +582,17 @@ def _tp_grads(mesh):
     parallelism: the logits of this rank's rows and every leaf's gradient
     of <C, logits> summed over "data"."""
     from repro_torch.configs import InputShape
-    from repro_torch.launch.mesh import act_rules, param_rules, port_rules
+    from repro_torch.launch.mesh import act_rules, param_rules
     from repro_torch.sharding import axis_rules
     out = {}
     shape = InputShape("train", S, B, "train")
     for arch in TP_ARCHS:
         cfg = _tp_cfg(arch)
         model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
-                               mesh, port_rules(param_rules(cfg, shape,
-                                                            False), cfg))
+                               mesh, param_rules(cfg, shape, False))
         model.requires_grad_(True)
         rows = _batch_rows(mesh, B)
-        with axis_rules(port_rules(act_rules(shape, False), cfg), mesh):
+        with axis_rules(act_rules(shape, False), mesh):
             logits, _ = tm.forward_train(cfg, model, _tokens(cfg)[rows])
             (logits * _cotangent(cfg)[rows]).sum().backward()
         grads = {}
@@ -610,15 +604,15 @@ def _tp_grads(mesh):
 
 
 #: C7's cases: Kimi K2 SMOKE built under the train param rules with FSDP
-#: (experts over "model", their d_ff over "data"), Llama SMOKE under
-#: tensor parallelism
+#: ("embed" and the experts' d_ff over "data", the experts, heads, d_ff
+#: and vocab over "model"), Llama SMOKE under tensor parallelism
 def _ckpt_cases():
     from repro_torch.configs import INPUT_SHAPES
-    from repro_torch.launch.mesh import param_rules, port_rules
+    from repro_torch.launch.mesh import param_rules
     kimi, llama = _moe_cfg(100.0), _train_cfg("llama31_8b")
-    return {"kimi": (kimi, port_rules(param_rules(
-                kimi, INPUT_SHAPES["train_4k"], False, fsdp=True), kimi)),
-            "llama": (llama, port_rules(TP_TRAIN, llama))}
+    return {"kimi": (kimi, param_rules(kimi, INPUT_SHAPES["train_4k"], False,
+                                       fsdp=True)),
+            "llama": (llama, TP_TRAIN)}
 
 
 def _checkpoints(mesh, ckpt_dir):
@@ -778,11 +772,9 @@ def test_gradients_match_dense(world, dense):
     """Every leaf's gradient, summed over the data axis, is the dense
     path's (its expert slice for the expert leaves) within 2e-4 of the
     leaf's largest |gradient|; none is zero."""
-    from repro_torch.launch.mesh import port_rules
     _, ranks, _ = world
     cfg, model, _, _ = dense
-    rules = port_rules({"batch": ("data",), "experts": ("model",),
-                        "expert_ff": ()})
+    rules = {"batch": ("data",), "experts": ("model",), "expert_ff": ()}
     axes = tm.params.param_axes(cfg)
     spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
     for r, out in enumerate(ranks):
@@ -1052,15 +1044,14 @@ def test_tensor_parallel_gradients_match_single(world, arch):
     replicated over "model" (norms) whole and bit-equal on the ranks of
     "model", none zero."""
     from repro_torch.configs import InputShape
-    from repro_torch.launch.mesh import param_rules, port_rules
+    from repro_torch.launch.mesh import param_rules
     _, ranks, coords = world
     cfg = _tp_cfg(arch)
     model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     model.requires_grad_(True)
     logits, _ = tm.forward_train(cfg, model, _tokens(cfg))
     (logits * _cotangent(cfg)).sum().backward()
-    rules = port_rules(param_rules(cfg, InputShape("train", S, B, "train"),
-                                   False), cfg)
+    rules = param_rules(cfg, InputShape("train", S, B, "train"), False)
     axes = tm.params.param_axes(cfg)
     spec_mesh = types.SimpleNamespace(mesh_dim_names=AXES, shape=MESH)
     split = 0
