@@ -5,6 +5,12 @@
 
 Phases (any failure exits non-zero; nothing is skipped):
   1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
+               (one nvcc each, in parallel) and print every instantiation's
+               ptxas registers and spills (no decode instantiation may
+               spill); the bf16 decode kernel's blocks an SM by head dim
+               from the card's occupancy calculator, held to the split
+               rule's count (kernels/ops.decode_blocks_per_sm) at 64, 128
+               and 256
   2. parity  — each kernel against its plain PyTorch version on the card:
                attention at Llama-3.1-8B heads at the main-path shapes
                and at phase 11's (a chunk of the planned size into a
@@ -12,10 +18,16 @@ Phases (any failure exits non-zero; nothing is skipped):
                offset, decode at B=4 L=4096) in
                bf16 (3e-2, and 2e-5 + 2 bf16 steps of the plain value) and
                f32 (2e-5), the split-KV decode kernel also against its plain
-               split-and-merge version and bit-equal to itself, the prefill
-               sweep in bf16 (the tensor-core path: 3e-2 and the bf16-steps
-               bound) and the f32 sweeps (the CUDA-core path, 2e-5), NaN in
-               the decode kernel's dead region; the
+               split-and-merge version and bit-equal to itself, and in bf16
+               (the tensor-core kernel) at every decode case below also
+               against its own arithmetic, decode_attention_split_p_ref,
+               under the same bounds; the decode kernel at G = 1, 2, 7, 12
+               and 16 (MusicGen-large, Gemma-2-9B's global layers,
+               Qwen2-0.5B, two n-tiles of heads at D = 128 and 256); the
+               prefill sweep in bf16 (the tensor-core path: 3e-2 and the
+               bf16-steps bound) and the f32 sweeps (the CUDA-core path,
+               2e-5), NaN in the decode kernel's dead region in both
+               dtypes; the
                paged kernel on the reference's cases (f32, 2e-5), on
                interleaved pages at Llama heads (bf16 and f32, and bit-equal
                to the contiguous decode kernel on the gathered KV) and under
@@ -494,12 +506,28 @@ def phase_build():
     build.build_all()
     log(f"[build] all {len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t:.1f} s")
-    d256 = {}
+    d256, decode = {}, {}
     for name in build.SOURCES:
         rep = ptxas_report(build.build_log(name))
         log(f"[build] {name}: ptxas {rep}")
         d256.update({k: v for k, v in rep.items() if "256" in k.split("<")[1]})
+        if "decode" in name:
+            decode.update({f"{name}: {k}": v for k, v in rep.items()})
     log(f"[build] head dim 256 instantiations: ptxas {d256}")
+    spills = {k: v for k, v in decode.items() if "spills 0/0 B" not in v}
+    log(f"[build] decode instantiations: {len(decode)}, spilling: {spills}")
+    check(decode and not spills, "a decode instantiation spills")
+    # the bf16 decode kernel's blocks an SM, as the split rule counts them
+    # and as the card's occupancy calculator gives them
+    from repro_torch.kernels import ops as kops
+    lib = build.lib("decode_attention")
+    occ = {D: (lib.decode_blocks_per_sm(D), kops.decode_blocks_per_sm(D))
+           for D in kops.HEAD_DIMS}
+    log(f"[build] bf16 decode blocks an SM by head dim (card, split rule): "
+        f"{occ}")
+    check(all(occ[D][0] == occ[D][1] for D in (64, 128, 256)),
+          "the split rule's blocks an SM differ from the card's at the "
+          "zoo's head dims")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -606,11 +634,17 @@ def phase_parity():
             ok &= judge_attention(
                 errs, "decode_attention", f"B=4 L={L} cur={curs}", dt,
                 out, ref.decode_attention_ref(q, k, v, cur))
-            split, nsplit = kops.decode_split(L, 4, 8)
+            split, nsplit = kops.decode_split(L, 4, 8, 128)
             ok &= judge_attention(
                 errs, "decode_attention", f"the same vs the plain "
                 f"split-and-merge version ({nsplit} splits of {split})", dt,
                 out, ref.decode_attention_split_ref(q, k, v, cur, split))
+            if dt == bf:
+                ok &= judge_attention(
+                    errs, "decode_attention", "the same vs the tensor-core "
+                    "kernel's arithmetic (decode_attention_split_p_ref)", dt,
+                    out, ref.decode_attention_split_p_ref(q, k, v, cur,
+                                                          split))
             same = bool(torch.equal(out,
                                     kops.decode_attention_op(q, k, v, cur)))
             ok &= same
@@ -663,21 +697,24 @@ def phase_parity():
     log(f"[parity] decode f32 sweep ({len(DECODE_SWEEP)} cases): "
         f"max_abs_err {worst:.3g} (tol {TOL[f32]})")
 
-    # NaN in the dead region (past cur_len, behind the window)
-    q = _rand(g, (2, 8, 64), f32)
-    k, v = _rand(g, (2, 256, 2, 64), f32), _rand(g, (2, 256, 2, 64), f32)
-    cur = torch.tensor([10, 100], device=dev)
-    clean = kops.decode_attention_op(q, k, v, cur, window=32)
-    for b, c in enumerate(cur.tolist()):
-        for t in (k, v):
-            t[b, c + 1:] = float("nan")
-            t[b, :max(c - 31, 0)] = float("nan")
-    dirty = kops.decode_attention_op(q, k, v, cur, window=32)
-    want = ref.decode_attention_ref(q, k, v, cur, window=32)
-    good = bool(torch.equal(clean, dirty)) and close(dirty, want, TOL[f32])
-    ok &= good
-    log(f"[parity] decode NaN-poisoned dead region: "
-        f"{'ok' if good else 'FAIL'}")
+    # NaN in the dead region (past cur_len, behind the window), both kernels
+    for dt in (f32, bf):
+        q = _rand(g, (2, 8, 64), dt)
+        k, v = _rand(g, (2, 256, 2, 64), dt), _rand(g, (2, 256, 2, 64), dt)
+        cur = torch.tensor([10, 100], device=dev)
+        clean = kops.decode_attention_op(q, k, v, cur, window=32)
+        for b, c in enumerate(cur.tolist()):
+            for t in (k, v):
+                t[b, c + 1:] = float("nan")
+                t[b, :max(c - 31, 0)] = float("nan")
+        dirty = kops.decode_attention_op(q, k, v, cur, window=32)
+        want = ref.decode_attention_ref(q, k, v, cur, window=32)
+        good = bool(torch.equal(clean, dirty)) and close(dirty, want, TOL[dt])
+        ok &= good
+        log(f"[parity] decode {'bf16' if dt == bf else 'f32'} NaN-poisoned "
+            f"dead region: {'ok' if good else 'FAIL'}")
+    errs["decode_attention"] = max(errs["decode_attention"],
+                                   parity_decode_groups(g))
     check(ok, "kernel parity failed")
 
     # times at the main-path shapes
@@ -771,6 +808,55 @@ def phase_parity():
     return errs, rows
 
 
+#: decode at the group sizes the other decode rows do not reach: (label,
+#: Hq, Hkv, D, softcap), each at B = 4, L = 2048, cur_lens DECODE_CUR
+DECODE_GROUPS = [
+    ("MusicGen-large heads 32/32 (G = 1)", 32, 32, 64, 0.0),
+    ("Gemma-2-9B global-layer heads 16/8 (G = 2), softcap 50", 16, 8, 256,
+     GEMMA_CAP),
+    ("Qwen2-0.5B heads 14/2 (G = 7)", 14, 2, 64, 0.0),
+    ("heads 24/2 (G = 12: two n-tiles of heads)", 24, 2, 128, 0.0),
+    ("heads 16/1 at D = 256 (G = 16: two n-tiles, Q^T from shared memory)",
+     16, 1, 256, 0.0),
+]
+
+
+def parity_decode_groups(g):
+    """The decode kernel at DECODE_GROUPS' heads, bf16 and f32: against the
+    plain version and the plain split-and-merge version, in bf16 also the
+    tensor-core kernel's arithmetic (``decode_attention_split_p_ref``), and
+    bit-equal to itself.  Returns the largest bf16 error."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    errs, ok, cur = {"decode_attention": 0.0}, True, i32(DECODE_CUR)
+    for dt in (torch.bfloat16, torch.float32):
+        for label, Hq, Hkv, D, cap in DECODE_GROUPS:
+            q = _rand(g, (4, Hq, D), dt)
+            k = _rand(g, (4, 2048, Hkv, D), dt)
+            v = _rand(g, (4, 2048, Hkv, D), dt)
+            out = kops.decode_attention_op(q, k, v, cur, softcap=cap)
+            split, nsplit = kops.decode_split(2048, 4, Hkv, D)
+            wants = {"plain": ref.decode_attention_ref(q, k, v, cur,
+                                                       softcap=cap),
+                     f"plain split-and-merge ({nsplit} splits of {split})":
+                     ref.decode_attention_split_ref(q, k, v, cur, split,
+                                                    softcap=cap)}
+            if dt == torch.bfloat16:
+                wants["decode_attention_split_p_ref"] = \
+                    ref.decode_attention_split_p_ref(q, k, v, cur, split,
+                                                     softcap=cap)
+            for what, want in wants.items():
+                ok &= judge_attention(errs, "decode_attention",
+                                      f"{label} vs {what}", dt, out, want)
+            same = bool(torch.equal(out, kops.decode_attention_op(
+                q, k, v, cur, softcap=cap)))
+            ok &= same
+            log(f"[parity] decode_attention {label}: two calls bit-equal: "
+                f"{same}")
+    check(ok, "decode kernel parity at the other group sizes failed")
+    return errs["decode_attention"]
+
+
 #: decode_attention_partial's cases: (label, whole L, slices, Hq, Hkv, D,
 #: window, softcap, cur_lens): Llama-3.1-8B's heads on phase 15 (a)'s
 #: 2048-position cache in 4 slices, cur_len on and beside a slice
@@ -815,14 +901,21 @@ def parity_partial(g):
                 vs = v[:, i * per:(i + 1) * per].contiguous()
                 o, lse = kops.decode_attention_partial(
                     q, ks, vs, cur, i * per, window=window, softcap=cap)
-                wo, wl = ref.decode_attention_partial_ref(
-                    q, ks, vs, cur, i * per, window=window, softcap=cap)
-                live = torch.isfinite(wl)
-                ok &= bool(torch.equal(torch.isneginf(lse),
-                                       torch.isneginf(wl)))
-                ok &= close(o, wo, TOL[torch.float32]) \
-                    and close(lse[live], wl[live], TOL[torch.float32])
-                err = max(err, max_err(o, wo), max_err(lse[live], wl[live]))
+                wants = [ref.decode_attention_partial_ref(
+                    q, ks, vs, cur, i * per, window=window, softcap=cap)]
+                if dt == torch.bfloat16:       # the tensor-core arithmetic
+                    wants.append(ref.decode_attention_split_p_ref(
+                        q, ks, vs, cur, kops.decode_split(per, len(curs),
+                                                          Hkv, D)[0],
+                        window=window, softcap=cap, pos0=i * per))
+                for wo, wl in wants:
+                    live = torch.isfinite(wl)
+                    ok &= bool(torch.equal(torch.isneginf(lse),
+                                           torch.isneginf(wl)))
+                    ok &= close(o, wo, TOL[torch.float32]) \
+                        and close(lse[live], wl[live], TOL[torch.float32])
+                    err = max(err, max_err(o, wo),
+                              max_err(lse[live], wl[live]))
                 again = kops.decode_attention_partial(
                     q, ks, vs, cur, i * per, window=window, softcap=cap)
                 same &= bool(torch.equal(o, again[0])
@@ -934,7 +1027,7 @@ def parity_head_dim_256(g):
             cur = i32(curs)
             out = kops.decode_attention_op(q, k, v, cur, window=win,
                                            softcap=cap)
-            split, nsplit = kops.decode_split(L, B, Hkv)
+            split, nsplit = kops.decode_split(L, B, Hkv, D)
             ok &= judge_attention(
                 errs, "decode_attention", f"D=256 {label}", dt, out,
                 ref.decode_attention_ref(q, k, v, cur, window=win,
@@ -944,6 +1037,12 @@ def parity_head_dim_256(g):
                 f"split-and-merge version ({nsplit} splits of {split})", dt,
                 out, ref.decode_attention_split_ref(q, k, v, cur, split,
                                                     window=win, softcap=cap))
+            if dt == bf:
+                ok &= judge_attention(
+                    errs, "decode_attention", f"D=256 {label}, vs the "
+                    "tensor-core kernel's arithmetic", dt, out,
+                    ref.decode_attention_split_p_ref(
+                        q, k, v, cur, split, window=win, softcap=cap))
             same = bool(torch.equal(out, kops.decode_attention_op(
                 q, k, v, cur, window=win, softcap=cap)))
             ok &= same
@@ -952,7 +1051,7 @@ def parity_head_dim_256(g):
         q = _rand(g, (4, 16, D), dt)
         pk, pv = _rand(g, (40, 128, 8, D), dt), _rand(g, (40, 128, 8, D), dt)
         out = kops.paged_decode_attention(q, pk, pv, tables, pcur)
-        split, _ = kops.decode_split(16 * 128, 4, 8, 128)
+        split, _ = kops.decode_split(16 * 128, 4, 8, D, 128)
         label = f"D=256 Gemma-2-9B heads B=4 cur={DECODE_CUR} interleaved " \
             "pages"
         ok &= judge_attention(
@@ -963,9 +1062,14 @@ def parity_head_dim_256(g):
             "split-and-merge version", dt, out,
             ref.paged_decode_attention_split_ref(q, pk, pv, tables, pcur,
                                                  split))
-        same = bool(torch.equal(out, kops.decode_attention_op(
-            q, pk[safe].reshape(4, -1, 8, D), pv[safe].reshape(4, -1, 8, D),
-            pcur)))
+        gk, gv = pk[safe].reshape(4, -1, 8, D), pv[safe].reshape(4, -1, 8, D)
+        if dt == bf:
+            ok &= judge_attention(
+                errs, "paged_decode_attention", f"{label}, vs the "
+                "tensor-core kernel's arithmetic on the gathered KV", dt, out,
+                ref.decode_attention_split_p_ref(q, gk, gv, pcur, split))
+        same = bool(torch.equal(out, kops.decode_attention_op(q, gk, gv,
+                                                              pcur)))
         ok &= same
         log(f"[parity] paged_decode_attention {tag} {label}: bit-equal to "
             f"the contiguous decode kernel on the gathered KV: {same}")
@@ -1075,7 +1179,7 @@ def parity_qwen_heads(g):
         k, v = _rand(g, (4, 2048, Hkv, D), dt), _rand(g, (4, 2048, Hkv, D), dt)
         cur = i32(DECODE_CUR)
         out = kops.decode_attention_op(q, k, v, cur)
-        split, nsplit = kops.decode_split(2048, 4, Hkv)
+        split, nsplit = kops.decode_split(2048, 4, Hkv, D)
         label = f"Qwen heads 40/8 B=4 L=2048 cur={DECODE_CUR}"
         ok &= judge_attention(errs, "decode_attention", label, dt, out,
                               ref.decode_attention_ref(q, k, v, cur))
@@ -1083,6 +1187,11 @@ def parity_qwen_heads(g):
             errs, "decode_attention", f"{label}, vs the plain split-and-merge "
             f"version ({nsplit} splits of {split})", dt, out,
             ref.decode_attention_split_ref(q, k, v, cur, split))
+        if dt == bf:
+            ok &= judge_attention(
+                errs, "decode_attention", f"{label}, vs the tensor-core "
+                "kernel's arithmetic", dt, out,
+                ref.decode_attention_split_p_ref(q, k, v, cur, split))
         same = bool(torch.equal(out, kops.decode_attention_op(q, k, v, cur)))
         ok &= same
         log(f"[parity] decode_attention {'bf16' if dt == bf else 'f32'} "
@@ -1264,10 +1373,16 @@ def parity_paged(g):
         contiguous = kops.decode_attention_op(
             q, pk[safe].reshape(4, -1, 8, 128),
             pv[safe].reshape(4, -1, 8, 128), cur)
-        split, _ = kops.decode_split(16 * 128, 4, 8, 128)
-        for label, w in (("plain", want), ("plain split-and-merge",
-                         ref.paged_decode_attention_split_ref(
-                             q, pk, pv, tables, cur, split))):
+        split, _ = kops.decode_split(16 * 128, 4, 8, 128, 128)
+        wants = [("plain", want), ("plain split-and-merge",
+                  ref.paged_decode_attention_split_ref(q, pk, pv, tables,
+                                                       cur, split))]
+        if dt == bf:
+            wants.append(("the tensor-core kernel's arithmetic on the "
+                          "gathered KV", ref.decode_attention_split_p_ref(
+                              q, pk[safe].reshape(4, -1, 8, 128),
+                              pv[safe].reshape(4, -1, 8, 128), cur, split)))
+        for label, w in wants:
             e, good = max_err(out, w), close(out, w, TOL[dt])
             note = f"max_abs_err {e:.3g} (tol {TOL[dt]})"
             if dt == bf:
@@ -1833,8 +1948,8 @@ def _device_by_kind(prof):
         name = e.name.lower()
         us = e.time_range.elapsed_us()
         n += 1
-        if any(w in name for w in ("decode_split_kernel", "prefill_",
-                                   "decode_combine_kernel")):
+        if any(w in name for w in ("decode_tc_kernel", "decode_split_kernel",
+                                   "prefill_", "decode_combine_kernel")):
             kinds["attention"] += us
             n_attn += 1
         elif "wkv6_" in name:

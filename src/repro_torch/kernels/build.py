@@ -43,6 +43,8 @@ _ARGTYPES = {
     # MB, BS, Hq, Hkv, D, scale, split, stream
     "paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _F, _I, _P],
+    # D
+    "decode_blocks_per_sm": [_I],
     # r, k, v, w, u, s0, y, sT, ws, B, S, H, K, chunk, segment, stream
     "wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _P],
@@ -50,7 +52,8 @@ _ARGTYPES = {
 
 #: the C entry points of each library that has more than the one of its name
 ENTRIES = {"decode_attention": ("decode_attention",
-                                "decode_attention_partial")}
+                                "decode_attention_partial",
+                                "decode_blocks_per_sm")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,6 @@
-// Decode attention for Hopper (sm_90a): split-KV (flash-decoding), CUDA
-// cores, f32 math.  The kernels are in decode_common.cuh.
+// Decode attention for Hopper (sm_90a): split-KV (flash-decoding), bf16 on
+// tensor cores, f32 on CUDA cores.  The kernels, and what bounds them, are
+// in decode_common.cuh.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py (_kernel,
 // launched by pl.pallas_call at :97).  One new query token per request
@@ -8,16 +9,6 @@
 //
 // Layout: q/out (B, Hq, D), k/v (B, L, Hkv, D), f32 or bf16; cur_lens (B,)
 // int32.  The G = Hq / Hkv query heads of a group share one kv head.
-//
-// What bounds it: every live key and value row is read once for only
-// 4 * G * D flops (about 1 flop per byte at G = 4, far below the ~295 of
-// the tensor cores' ridge), so it is bound by bytes.  What the design does
-// about it: it reads only the live range, each k/v row once for all G
-// query heads of its group, and it fills the card: the key axis is cut
-// into splits (grid (Hkv, B, nsplit)), so at decode batch 4 with 8 kv heads
-// and a 2048-token cache some 280 blocks carry live rows instead of 32,
-// each keeping three 16 KB tiles of cp.async loads in flight.  A second,
-// small kernel merges the splits' partials.
 //
 // decode_attention_partial runs the same kernels on one slice of a cache
 // whose positions are split across ranks (context parallelism): local row 0
@@ -95,4 +86,26 @@ extern "C" int decode_attention_partial(
   p.scale = scale;
   p.split = split;
   return dispatch_decode<false>(dtype, p, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the bf16 split pass one SM holds at head dim D (a contiguous
+// cache, groups of up to 8 query heads), as the occupancy calculator gives
+// it; -1 for another head dim.  kernels/ops.py decode_blocks_per_sm, which
+// the split rule reads, is held to it on the card.
+extern "C" int decode_blocks_per_sm(int D) {
+  using namespace repro_torch;
+  switch (D) {
+    case 16:
+      return tc_blocks_per_sm<16>();
+    case 32:
+      return tc_blocks_per_sm<32>();
+    case 64:
+      return tc_blocks_per_sm<64>();
+    case 128:
+      return tc_blocks_per_sm<128>();
+    case 256:
+      return tc_blocks_per_sm<256>();
+    default:
+      return -1;
+  }
 }

@@ -1,6 +1,6 @@
-// Paged decode attention for Hopper (sm_90a): split-KV (flash-decoding), CUDA
-// cores, f32 math.  The kernels are in decode_common.cuh, shared with
-// decode_attention.cu.
+// Paged decode attention for Hopper (sm_90a): split-KV (flash-decoding), bf16
+// on tensor cores, f32 on CUDA cores.  The kernels are in decode_common.cuh,
+// shared with decode_attention.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_decode_attention.py
 // (paged_decode_attention :27, body _kernel_with_prefetch :77 / _body :90,
@@ -15,16 +15,15 @@
 // of a group share one kv head.
 //
 // What bounds it: as the contiguous kernel, bytes (every live key and value
-// row read once for 4 * G * D flops); paging adds a table entry per page.
-// What the design does about it: the contiguous kernel's split-KV blocks,
-// with splits of whole pages.  Each block reads its split's page ids once
-// and turns them into a table of pool rows in shared memory (one warp per
-// page, no division); its tile loads then address rows through that table
-// exactly as the contiguous kernel addresses its cache, and a -1 page's
-// rows are neither loaded nor weighed.  With the same split rule as the
-// contiguous kernel, the two compute in the same order: over interleaved
-// pages this kernel gives bit for bit what the contiguous one gives on the
-// same KV gathered.
+// row read once); paging adds a table entry per page.  What the design does
+// about it: the contiguous kernels' split-KV blocks, with splits of whole
+// pages.  Each block reads its split's page ids once and turns them into a
+// table of pool rows in shared memory (one warp per page, no division); its
+// tile loads then address rows through that table exactly as the
+// contiguous kernel addresses its cache, and a -1 page's rows are neither
+// loaded nor weighed.  With the same split rule as the contiguous kernel,
+// the two compute in the same order: over interleaved pages this kernel
+// gives bit for bit what the contiguous one gives on the same KV gathered.
 #include "decode_common.cuh"
 
 // Returns the cudaError_t of the launches (0 = launched), or -1 for an

@@ -145,27 +145,48 @@ def _prefill_forward(q, k, v, offset, lengths, window, softcap, scale):
 
 
 # The decode kernels' split rule (csrc/decode_common.cuh).  Splits are
-# powers of two times SPLIT_QUANTUM positions (a multiple of every tile),
-# at most SPLIT_MAX, and as short as it takes to give BLOCKS_WANTED blocks:
-# about four per SM of an H100 before the blocks whose split misses the live
-# range return.
-SPLIT_QUANTUM = 64
+# powers of two times SPLIT_QUANTUM positions (a multiple of every tile and
+# of the serving path's 128-position pages), at most SPLIT_MAX, and as long
+# as they can be while the blocks still fill every slot the bf16 kernel has
+# on an H100 (decode_blocks_per_sm at the head dim, on each of SMS SMs)
+# WAVES times over: a block whose split misses its request's live range
+# returns at once, and with lengths spread evenly over the cache half the
+# blocks are live (on an H100 this split beat the one-wave split at
+# Gemma-2-9B's decode rows and equals it at Llama's: PERF.md).
+SPLIT_QUANTUM = 128
 SPLIT_MAX = 2048
-BLOCKS_WANTED = 4 * 132
+WAVES = 2
+SMS = 132                   # an H100 SXM's SMs
+SM_SHARED = 233472          # the shared memory an SM gives its blocks (228 KB)
+BLOCK_SHARED = 1024         # ... of which each block takes this much more
+MAX_BLOCKS_PER_SM = 16      # 64 warps an SM, 4 a block
 
 
-def decode_split(positions: int, B: int, Hkv: int,
+def decode_blocks_per_sm(D: int) -> int:
+    """Blocks of the bf16 decode kernel one SM holds at head dim D: as
+    many as its K/V ring leaves room for (STAGES tiles of 16 KW keys of K
+    and V, rows of D + 8 bf16: ``ref.decode_tc_tile``).  ``chip_smoke.py``
+    holds this to the card's occupancy calculator (the C entry
+    decode_blocks_per_sm) at the zoo's head dims, 64, 128 and 256; at 16
+    and 32 the card's registers hold fewer (9 and 8 on an H100), and the
+    rule asks for more blocks than fit."""
+    kw, stages = ref.decode_tc_tile(D)
+    ring = stages * 2 * 16 * kw * (D + 8) * 2
+    return min(MAX_BLOCKS_PER_SM, SM_SHARED // (ring + BLOCK_SHARED))
+
+
+def decode_split(positions: int, B: int, Hkv: int, D: int,
                  block_size: int = 1) -> tuple[int, int]:
     """(split, nsplit) for `positions` cache positions (L, or MB * BS pages'
-    worth), B requests and Hkv kv heads; with pages of `block_size`, the
-    split is a whole number of pages.  It depends on the shapes alone: the
-    host never reads cur_lens, which lives on the device.  Both decode
-    kernels use this rule, so over the same positions they cut the keys
-    alike."""
-    want = -(-BLOCKS_WANTED // max(B * Hkv, 1))
-    raw = -(-max(positions, 1) // want)
+    worth), B requests, Hkv kv heads of head dim D; with pages of
+    `block_size`, the split is a whole number of pages.  It depends on the
+    shapes alone: the host never reads cur_lens, which lives on the device.
+    Both decode kernels use this rule, so over the same positions they cut
+    the keys alike."""
+    slots = WAVES * decode_blocks_per_sm(D) * SMS
     split = SPLIT_QUANTUM
-    while split < min(raw, SPLIT_MAX):
+    while 2 * split <= SPLIT_MAX \
+            and B * Hkv * -(-max(positions, 1) // (2 * split)) >= slots:
         split *= 2
     grain = math.lcm(SPLIT_QUANTUM, block_size)
     split = -(-split // grain) * grain
@@ -193,9 +214,10 @@ def decode_attention_op(q, k, v, cur_lens, window: int = 0,
     """(B,Hq,D) single-token decode against a (B,L,Hkv,D) cache.
 
     On the card: split-KV, one block per (kv head, request, split of
-    ``decode_split(L, B, Hkv)`` positions), then a combine pass when there
-    is more than one split; the partials go to scratch of
-    B * Hq * nsplit * (D + 2) floats from ``torch.empty``."""
+    ``decode_split(L, B, Hkv, D)`` positions), bf16 on tensor cores and f32
+    on CUDA cores, then a combine pass when there is more than one split;
+    the partials go to scratch of B * Hq * nsplit * (D + 2) floats from
+    ``torch.empty``."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, cur_lens, window=window,
                                         softcap=softcap, scale=scale)
@@ -207,7 +229,7 @@ def decode_attention_op(q, k, v, cur_lens, window: int = 0,
     _check_cuda(q, k, v)
     scale = scale if scale is not None else D ** -0.5
     cur_lens = _int32(cur_lens, q.device)
-    split, nsplit = decode_split(L, B, Hkv)
+    split, nsplit = decode_split(L, B, Hkv, D)
     out = torch.empty_like(q)
     ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
     fn = build.lib("decode_attention").decode_attention
@@ -231,7 +253,7 @@ def decode_attention_partial(q, k, v, cur_lens, pos0: int,
     ``ref.merge_decode_partials`` of the slices' pairs is the whole decode.
 
     On the card: ``decode_attention_op``'s kernels over splits of
-    ``decode_split(L, B, Hkv)`` local positions, writing the pair."""
+    ``decode_split(L, B, Hkv, D)`` local positions, writing the pair."""
     if pos0 < 0:
         raise ValueError(f"pos0 {pos0} < 0")
     if q.device.type == "cpu":
@@ -246,7 +268,7 @@ def decode_attention_partial(q, k, v, cur_lens, pos0: int,
     _check_cuda(q, k, v)
     scale = scale if scale is not None else D ** -0.5
     cur_lens = _int32(cur_lens, q.device)
-    split, nsplit = decode_split(L, B, Hkv)
+    split, nsplit = decode_split(L, B, Hkv, D)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
@@ -267,8 +289,8 @@ def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
     -1 = unallocated.
 
     On the card: the decode kernel's split-KV blocks over splits of
-    ``decode_split(MB * BS, B, Hkv, BS)`` positions (whole pages), then the
-    combine pass; scratch as ``decode_attention_op``'s."""
+    ``decode_split(MB * BS, B, Hkv, D, BS)`` positions (whole pages), then
+    the combine pass; scratch as ``decode_attention_op``'s."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, pool_k, pool_v, tables,
                                               cur_lens, scale=scale)
@@ -282,7 +304,7 @@ def paged_decode_attention(q, pool_k, pool_v, tables, cur_lens,
     scale = scale if scale is not None else D ** -0.5
     tables, cur_lens = _int32(tables, q.device), _int32(cur_lens, q.device)
     MB = tables.shape[1]
-    split, nsplit = decode_split(MB * BS, B, Hkv, BS)
+    split, nsplit = decode_split(MB * BS, B, Hkv, D, BS)
     out = torch.empty_like(q)
     ws, part_o, part_ml = _partials(B * Hq, nsplit, D, q.device)
     fn = build.lib("paged_decode_attention").paged_decode_attention

@@ -12,11 +12,12 @@ chunked form of it (``models/ops.py: rwkv_wkv_chunked``).
 ``decode_attention_partial_ref`` is the decode over one slice of a cache
 split over its positions (its output and log-sum-exp), and
 ``merge_decode_partials`` merges the slices, on every device (the merge
-is not a kernel's body).  Two more compute
+is not a kernel's body).  Three more compute
 a function here with a kernel's own arithmetic, for the tests:
-``chunked_prefill_attention_split_p_ref`` (the bf16 tensor-core kernel's
-tiles and P rounding) and ``wkv6_segmented`` (the WKV6 kernel's three
-passes over segments).  The CPU path of
+``chunked_prefill_attention_split_p_ref`` and
+``decode_attention_split_p_ref`` (the bf16 tensor-core kernels' tiles and
+P rounding) and ``wkv6_segmented`` (the WKV6 kernel's three passes over
+segments).  The CPU path of
 every wrapper in ``kernels/ops.py`` runs these; on the card they are what
 the kernels are held against, and the attention and WKV6 wrappers'
 backward passes differentiate ``chunked_prefill_attention_ref`` and
@@ -263,6 +264,95 @@ def decode_attention_split_ref(q, k, v, cur_lens, split: int,
     live = (pos >= lo[:, None]) & (pos <= hi[:, None])
     vf = torch.where(live[:, :, None, None], v.float(), 0.0)
     return _split_merge(s, vf, live, lo, hi, split, q.dtype)
+
+
+def decode_tc_tile(D: int) -> tuple[int, int]:
+    """(KW, STAGES) of the bf16 decode kernel at head dim D
+    (csrc/decode_common.cuh TcTile<D>): a tile is KW blocks of 16 keys,
+    each with its own online softmax, and the ring holds STAGES tiles."""
+    return (2, 3) if D > 128 else (4, 2)
+
+
+def decode_attention_split_p_ref(
+        q, k, v, cur_lens, split: int, window: int = 0,
+        softcap: float = 0.0, scale: Optional[float] = None,
+        pos0: Optional[int] = None, p_parts: int = 2):
+    """``decode_attention_ref`` computed with the bf16 tensor-core decode
+    kernel's arithmetic: splits of `split` positions; inside each, tiles
+    of KW blocks of 16 keys (``decode_tc_tile``), block w of every tile a
+    step of block w's online softmax in the log2 domain (softcap before the
+    max, a dead key at NEG_INF and of weight 0), P rounded to `p_parts`
+    bf16 terms before P·V (2: the kernel's hi + lo pair, p_hi = bf16(p),
+    p_lo = bf16(p - p_hi); 1: a single bf16 P), V and the products in f32,
+    the row sum from the f32 P; the blocks' states merged at the end of the
+    split, then the splits that meet the live range by log-sum-exp in split
+    order.  A row with no live key gives 0.  With `pos0`, k / v are one
+    slice of the cache holding absolute positions pos0 .. pos0 + L - 1,
+    and it returns (o (B, Hq, D) f32, lse (B, Hq) f32) as
+    ``decode_attention_partial_ref`` does.  For the tests; no serving path
+    calls it."""
+    B, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    G, (KW, _) = Hq // Hkv, decode_tc_tile(D)
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    nsplit, nt = -(-L // split), split // (16 * KW)
+    Lp = nsplit * split
+    base = 0 if pos0 is None else pos0
+    cur = cur_lens.to(dev).long()
+    hi = cur.clamp(max=base + L - 1) - base
+    lo = ((cur - window + 1) if window else torch.zeros_like(cur)) \
+        .clamp(min=base) - base
+    pos = torch.arange(Lp, device=dev)[None]
+    live = (pos >= lo[:, None]) & (pos <= hi[:, None])            # (B, Lp)
+
+    def padded(x):          # dead rows are never loaded: zeros
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, Lp - L))
+        return torch.where(live[:, :, None, None], x, 0.0)
+    kf, vf = padded(k), padded(v)
+    s = torch.einsum("bkgd,blkd->bkgl", q.reshape(B, Hkv, G, D).float(),
+                     kf) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(live[:, None, None], s * LOG2E, NEG_INF)
+    s = s.reshape(B, Hkv, G, nsplit, nt, KW, 16)
+    lv = live.reshape(B, 1, 1, nsplit, nt, KW, 16)
+    vt = vf.reshape(B, nsplit, nt, KW, 16, Hkv, D)
+    m = torch.full((B, Hkv, G, nsplit, KW), NEG_INF, device=dev)
+    l = torch.zeros(B, Hkv, G, nsplit, KW, device=dev)
+    o = torch.zeros(B, Hkv, G, nsplit, KW, D, device=dev)
+    for t in range(nt):
+        x = s[..., t, :, :]
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(lv[..., t, :, :], torch.exp2(x - m_new[..., None]),
+                        0.0)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None]
+        rest = p
+        for _ in range(p_parts):
+            term = rest.bfloat16().float()
+            rest = rest - term
+            o = o + torch.einsum("bkgnwt,bnwtkd->bkgnwd", term,
+                                 vt[:, :, t])
+        m = m_new
+    mw = m.amax(-1)                                      # the blocks merged
+    c = torch.exp2(m - mw[..., None])
+    m, l, o = mw, (l * c).sum(-1), (o * c[..., None]).sum(-2)
+    idx = torch.arange(nsplit, device=dev)
+    meet = (idx[None] >= (lo // split)[:, None]) \
+        & (idx[None] <= (hi // split)[:, None]) & (lo <= hi)[:, None]
+    meet = meet[:, None, None]                           # (B, 1, 1, n)
+    M = torch.where(meet, m, NEG_INF).amax(-1)
+    c = torch.where(meet, torch.exp2(m - M[..., None]), 0.0)
+    Ls = (l * c).sum(-1)
+    O = (o * c[..., None]).sum(-2)
+    out = (O / Ls.clamp(min=1e-30)[..., None]).reshape(B, Hq, D)
+    if pos0 is None:
+        return out.to(q.dtype)
+    lse = torch.where(Ls > 0, (M + torch.log2(Ls.clamp(min=1e-30))) / LOG2E,
+                      float("-inf"))
+    return out, lse.reshape(B, Hq)
 
 
 def decode_attention_partial_ref(

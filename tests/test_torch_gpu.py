@@ -49,11 +49,11 @@ DECODE_SWEEP = [
 # these shapes): the same cases as tests/test_torch_split_decode.py.
 DECODE_SPLIT_CASES = {
     # id: (L, Hq, Hkv, D, window, softcap, cur_lens)
-    "boundary-at-cur-1-cur-cur+1": (192, 8, 2, 32, 0, 0.0, [65, 64, 63]),
+    "boundary-at-cur-1-cur-cur+1": (192, 8, 2, 32, 0, 0.0, [129, 128, 127]),
     "cur-0": (128, 4, 1, 16, 0, 0.0, [0, 0]),
-    "window-inside-one-split": (256, 8, 2, 32, 20, 0.0, [100, 140]),
-    "window-spans-two-splits": (256, 8, 2, 32, 50, 0.0, [80, 200]),
-    "window-boundary-at-start": (256, 4, 2, 16, 37, 0.0, [100, 63]),
+    "window-inside-one-split": (256, 8, 2, 32, 20, 0.0, [100, 250]),
+    "window-spans-two-splits": (256, 8, 2, 32, 50, 0.0, [150, 140]),
+    "window-boundary-at-start": (256, 4, 2, 16, 37, 0.0, [164, 127]),
     "no-visible-key": (128, 4, 2, 16, 16, 0.0, [127, 143]),
     "L-not-a-multiple": (150, 8, 2, 64, 0, 0.0, [149, 70, 128]),
     "single-split": (48, 4, 2, 32, 0, 30.0, [47, 12]),
@@ -229,7 +229,7 @@ def test_decode_kernel_split_cases(cuda, case):
     k, v = _randn(g, B, L, Hkv, D), _randn(g, B, L, Hkv, D)
     cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
     out = kops.decode_attention_op(q, k, v, cur, window=window, softcap=cap)
-    split, _ = kops.decode_split(L, B, Hkv)
+    split, _ = kops.decode_split(L, B, Hkv, D)
     _close(out, ref.decode_attention_ref(q, k, v, cur, window=window,
                                          softcap=cap), 2e-5)
     _close(out, ref.decode_attention_split_ref(q, k, v, cur, split,
@@ -327,7 +327,7 @@ def test_decode_kernel_main_path_split_and_deterministic(cuda, dtype):
     k = _randn(g, 4, 2048, 8, 128, dtype=dtype)
     v = _randn(g, 4, 2048, 8, 128, dtype=dtype)
     cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
-    split, nsplit = kops.decode_split(2048, 4, 8)
+    split, nsplit = kops.decode_split(2048, 4, 8, 128)
     assert nsplit > 1
     out = kops.decode_attention_op(q, k, v, cur)
     want = ref.decode_attention_split_ref(q, k, v, cur, split)
@@ -337,6 +337,34 @@ def test_decode_kernel_main_path_split_and_deterministic(cuda, dtype):
     else:
         _close(out, want, 2e-5)
     again = kops.decode_attention_op(q, k, v, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("G,D", [(1, 64), (2, 256), (4, 128), (5, 128),
+                                 (7, 64), (8, 256), (12, 128), (16, 256),
+                                 (20, 64)])
+def test_decode_kernel_bf16_groups(cuda, G, D):
+    """The bf16 tensor-core kernel at every group of the zoo and past it
+    (one n-tile of 8 heads, two, Q^T from shared memory at D = 256, a
+    group over two blocks), with a window and softcap: against the plain
+    version, its own arithmetic (decode_attention_split_p_ref) and bit-equal
+    to itself."""
+    g = torch.Generator(device=cuda).manual_seed(10 * G + D)
+    Hkv, L = 2, 640
+    q = _randn(g, 3, G * Hkv, D, dtype=torch.bfloat16)
+    k = _randn(g, 3, L, Hkv, D, dtype=torch.bfloat16)
+    v = _randn(g, 3, L, Hkv, D, dtype=torch.bfloat16)
+    cur = torch.tensor([639, 128, 15], device=cuda)
+    out = kops.decode_attention_op(q, k, v, cur, window=300, softcap=30.0)
+    split, _ = kops.decode_split(L, 3, Hkv, D)
+    for want in (ref.decode_attention_ref(q, k, v, cur, window=300,
+                                          softcap=30.0),
+                 ref.decode_attention_split_p_ref(q, k, v, cur, split,
+                                                  window=300, softcap=30.0)):
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+    again = kops.decode_attention_op(q, k, v, cur, window=300, softcap=30.0)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
 
@@ -660,7 +688,7 @@ def test_paged_kernel_split_cases(cuda, case):
     cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
     q = _randn(g, B, Hq, D)
     out = kops.paged_decode_attention(q, pk, pv, tables, cur)
-    split, _ = kops.decode_split(MB * BS, B, Hkv, BS)
+    split, _ = kops.decode_split(MB * BS, B, Hkv, D, BS)
     _close(out, ref.paged_decode_attention_ref(q, pk, pv, tables, cur), 2e-5)
     _close(out, ref.paged_decode_attention_split_ref(q, pk, pv, tables, cur,
                                                      split), 2e-5)
@@ -772,7 +800,7 @@ def test_decode_kernel_d256(cuda, case, dtype):
     v = _randn(g, B, L, Hkv, 256, dtype=dtype)
     cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
     out = kops.decode_attention_op(q, k, v, cur, window=window, softcap=cap)
-    split, nsplit = kops.decode_split(L, B, Hkv)
+    split, nsplit = kops.decode_split(L, B, Hkv, 256)
     assert nsplit > 1
     for want in (ref.decode_attention_ref(q, k, v, cur, window=window,
                                           softcap=cap),
@@ -802,7 +830,7 @@ def test_paged_kernel_d256(cuda, dtype):
     pk = _randn(g, 40, 128, 8, 256, dtype=dtype)
     pv = _randn(g, 40, 128, 8, 256, dtype=dtype)
     out = kops.paged_decode_attention(q, pk, pv, tables, cur)
-    split, _ = kops.decode_split(tables.shape[1] * 128, 4, 8, 128)
+    split, _ = kops.decode_split(tables.shape[1] * 128, 4, 8, 256, 128)
     for want in (ref.paged_decode_attention_ref(q, pk, pv, tables, cur),
                  ref.paged_decode_attention_split_ref(q, pk, pv, tables, cur,
                                                       split)):

@@ -84,7 +84,7 @@ def test_decode_plain_d256_matches_pallas(Hq, Hkv, window, cap):
     out = tops.decode_attention_op(_t(q), _t(k), _t(v), _t(cur),
                                    window=window, softcap=cap)
     _close(out, want)
-    split, nsplit = tops.decode_split(L, B, Hkv)
+    split, nsplit = tops.decode_split(L, B, Hkv, 256)
     assert nsplit > 1
     _close(tref.decode_attention_split_ref(_t(q), _t(k), _t(v), _t(cur),
                                            split, window=window,

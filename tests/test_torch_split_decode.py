@@ -143,7 +143,7 @@ def test_paged_split_ref_equals_contiguous_split_ref_on_gathered_kv():
     for b, c in enumerate(cur):          # the gathered stand-ins are dead
         k[b, c + 1:] = np.nan
         v[b, c + 1:] = np.nan
-    split, _ = tops.decode_split(6 * 32, 3, 2, 32)
+    split, _ = tops.decode_split(6 * 32, 3, 2, 32, 32)
     paged = tref.paged_decode_attention_split_ref(
         *map(_t, (q, pk, pv, tables, cur)), split)
     contiguous = tref.decode_attention_split_ref(*map(_t, (q, k, v, cur)),
@@ -151,31 +151,43 @@ def test_paged_split_ref_equals_contiguous_split_ref_on_gathered_kv():
     _close(paged.numpy(), contiguous.numpy())
 
 
-@pytest.mark.parametrize("positions,B,Hkv,bs,split,nsplit", [
-    (2048, 4, 8, 1, 128, 16),       # Llama-3.1-8B decode rows, contiguous
-    (2048, 4, 8, 128, 128, 16),     # ... and over 128-token pages
-    (8192, 1, 8, 1, 128, 64),       # one long request: many splits
-    (150, 2, 2, 1, 64, 3),          # positions not a multiple of the split
-    (48, 1, 1, 1, 64, 1),           # a single split
-    (2048, 4, 8, 16, 128, 16),      # small pages: the same split
-    (32768, 128, 8, 1, 2048, 16),   # large batch: capped at SPLIT_MAX
+@pytest.mark.parametrize("positions,B,Hkv,D,bs,split,nsplit", [
+    (2048, 4, 8, 128, 1, 128, 16),      # Llama-3.1-8B decode rows
+    (2048, 4, 8, 128, 128, 128, 16),    # ... and over 128-token pages
+    (8192, 1, 8, 128, 1, 128, 64),      # one long request: many splits
+    (150, 2, 2, 64, 1, 128, 2),         # positions not a multiple
+    (48, 1, 1, 32, 1, 128, 1),          # a single split
+    (2048, 4, 8, 128, 16, 128, 16),     # small pages: the same split
+    (32768, 128, 8, 128, 1, 2048, 16),  # large batch: capped at SPLIT_MAX
+    (5120, 4, 8, 256, 1, 256, 20),      # Gemma-2-9B decode rows
+    (2048, 4, 8, 256, 128, 128, 16),    # ... over 128-token pages
 ])
-def test_decode_split_rule(positions, B, Hkv, bs, split, nsplit):
-    got = tops.decode_split(positions, B, Hkv, bs)
+def test_decode_split_rule(positions, B, Hkv, D, bs, split, nsplit):
+    got = tops.decode_split(positions, B, Hkv, D, bs)
     assert got == (split, nsplit)
     assert split % tops.SPLIT_QUANTUM == 0 and split % bs == 0
+
+
+@pytest.mark.parametrize("D,blocks", [(16, 16), (32, 10), (64, 6),
+                                      (128, 3), (256, 2)])
+def test_decode_blocks_per_sm(D, blocks):
+    """The bf16 kernel's ring leaves room for this many blocks on an SM
+    (228 KB, 1 KB a block besides; at most 16 blocks of 4 warps): the
+    slots the split rule fills twice over.  chip_smoke.py holds the card's
+    occupancy calculator to the same figures at D = 64, 128 and 256."""
+    assert tops.decode_blocks_per_sm(D) == blocks
 
 
 def test_decode_split_fills_the_card_at_the_main_path_shape():
     """B=4, Hkv=8, L=2048 with cur_lens 0/700/1500/2047: at least ~2 blocks
     per SM of an H100 carry live rows; the contiguous and paged kernels cut
     the keys alike."""
-    split, nsplit = tops.decode_split(2048, 4, 8)
-    assert (split, nsplit) == tops.decode_split(2048, 4, 8, 128)
+    split, nsplit = tops.decode_split(2048, 4, 8, 128)
+    assert (split, nsplit) == tops.decode_split(2048, 4, 8, 128, 128)
     live = sum(c // split + 1 for c in (0, 700, 1500, 2047)) * 8
     assert live >= 2 * 132
 
 
 def test_decode_split_refuses_pages_larger_than_a_split():
     with pytest.raises(ValueError):
-        tops.decode_split(8192, 1, 1, 4096)
+        tops.decode_split(8192, 1, 1, 128, 4096)
