@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero; nothing is skipped):
   1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
                (one nvcc each, in parallel) and print every instantiation's
-               ptxas registers and spills (no decode instantiation may
-               spill); the bf16 decode kernel's blocks an SM by head dim
+               ptxas registers and spills (no decode and no bf16 prefill
+               instantiation may spill; the D = 256 bf16 prefill kernel's
+               registers on a line of their own); the bf16 decode kernel's
+               blocks an SM by head dim
                from the card's occupancy calculator, held to the split
                rule's count (kernels/ops.decode_blocks_per_sm) at 64, 128
                and 256
@@ -44,9 +46,13 @@ Phases (any failure exits non-zero; nothing is skipped):
                of the split-KV and the three WKV6 passes; then the three
                attention kernels at head dim 256 (Gemma-2-9B's heads with
                softcap 50, windows of 4096 that bite, Gemma-2B's MQA heads;
-               paged bit-equal to contiguous) in bf16 and f32, and their
-               times at Gemma-2-9B's main shapes beside SDPA at the same
-               shape without softcap or window (a yardstick only), and the
+               paged bit-equal to contiguous) in bf16 and f32, the bf16
+               prefill (wgmma + TMA) also against its own arithmetic and
+               bit-equal to itself, and with NaN in the keys no row sees
+               bit-equal to its output on clean keys, and their times at
+               Gemma-2-9B's main shapes (the prefill's prompt, prompt past
+               the window and chunk past it, three rows) beside SDPA at the
+               same shape without softcap or window (a yardstick only), and the
                paged kernel's at D = 256 beside SDPA on the gathered KV;
                then the two attention kernels at Qwen-2.5-32B's heads (40
                over 8, G = 5) at the main path's shapes, bf16 and f32, and
@@ -506,17 +512,30 @@ def phase_build():
     build.build_all()
     log(f"[build] all {len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t:.1f} s")
-    d256, decode = {}, {}
+    d256, decode, prefill = {}, {}, {}
     for name in build.SOURCES:
         rep = ptxas_report(build.build_log(name))
         log(f"[build] {name}: ptxas {rep}")
         d256.update({k: v for k, v in rep.items() if "256" in k.split("<")[1]})
         if "decode" in name:
             decode.update({f"{name}: {k}": v for k, v in rep.items()})
+        # the bf16 prefill kernels: mma.sync at D <= 128, wgmma at 256
+        prefill.update({k: v for k, v in rep.items()
+                        if k.startswith(("prefill_tc_kernel",
+                                         "prefill_wg_kernel"))})
     log(f"[build] head dim 256 instantiations: ptxas {d256}")
     spills = {k: v for k, v in decode.items() if "spills 0/0 B" not in v}
     log(f"[build] decode instantiations: {len(decode)}, spilling: {spills}")
     check(decode and not spills, "a decode instantiation spills")
+    wg = {k: v for k, v in prefill.items() if k.startswith("prefill_wg")}
+    log(f"[build] the bf16 prefill kernel at D = 256, without and with a "
+        f"softcap: ptxas {wg} (registers at entry; setmaxnreg gives its "
+        f"consumer warpgroups 240, its producer 24)")
+    spills = {k: v for k, v in prefill.items() if "spills 0/0 B" not in v}
+    log(f"[build] bf16 prefill instantiations: {len(prefill)}, spilling: "
+        f"{spills}")
+    check(len(wg) == 2 and len(prefill) == 6 and not spills,
+          "a bf16 prefill instantiation spills or is missing")
     # the bf16 decode kernel's blocks an SM, as the split rule counts them
     # and as the card's occupancy calculator gives them
     from repro_torch.kernels import ops as kops
@@ -963,14 +982,19 @@ def parity_head_dim_256(g):
     their plain versions, in bf16 (3e-2 and 2e-5 + 2 bf16 steps) and f32
     (2e-5): prefill with Gemma-2-9B's heads (16 / 8) and softcap 50, at a
     prompt, a prompt past the 4096 window and a chunk past it, and with
-    Gemma-2B's MQA heads (8 / 1); decode with Gemma-2-9B's heads, a window
+    Gemma-2B's MQA heads (8 / 1), in bf16 (prefill_wg_kernel) also against
+    its own arithmetic (chunked_prefill_attention_split_p_ref), two calls
+    bit-equal; the chunk past the window with NaN in K and V at every key
+    no row sees (behind every row's window, past lengths), bit-equal to the
+    clean inputs' output; decode with Gemma-2-9B's heads, a window
     that bites and softcap 50, also against the plain split-and-merge
     version and bit-equal to itself, and with the MQA heads; paged decode
     over interleaved pages, bit-equal to the contiguous kernel on the
-    gathered KV.  Then times at Gemma-2-9B's main shapes beside SDPA at the
-    same shape with no softcap and no window (SDPA has no softcap: a
-    yardstick, not the same function).  Returns (bf16 errors, rows) keyed
-    by kernel."""
+    gathered KV.  Then times at Gemma-2-9B's main shapes (the prompt, and
+    the prompt and the chunk past the window, each a row of its own) beside
+    SDPA at the same shape with no softcap and no window (SDPA has no
+    softcap: a yardstick, not the same function).  Returns (bf16 errors,
+    rows), keyed by the kernels line's names."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
@@ -980,16 +1004,17 @@ def parity_head_dim_256(g):
     errs = {"chunked_prefill_attention": 0.0, "decode_attention": 0.0,
             "paged_decode_attention": 0.0}
     ok = True
+    window_label = "Gemma-2-9B heads, prompt past the window Sq=5120 " \
+        "len=4600, window 4096, softcap 50"
+    chunk_label = "Gemma-2-9B heads, chunk past the window Sq=256 off=4352 " \
+        "len=4608, window 4096, softcap 50"
+    by_case = {window_label: 0.0, chunk_label: 0.0}    # their bf16 errors
     prefill_cases = {
         # label: (Hq, Hkv, Sq, Skv, offset, length, window, softcap)
         "Gemma-2-9B heads, prompt Sq=512 Skv=2048, softcap 50":
             (16, 8, 512, 2048, 0, 512, 0, GEMMA_CAP),
-        "Gemma-2-9B heads, prompt past the window Sq=5120 len=4600, "
-        "window 4096, softcap 50":
-            (16, 8, 5120, 5120, 0, 4600, GEMMA_WINDOW, GEMMA_CAP),
-        "Gemma-2-9B heads, chunk past the window Sq=256 off=4352 len=4608, "
-        "window 4096, softcap 50":
-            (16, 8, 256, 5120, 4352, 4608, GEMMA_WINDOW, GEMMA_CAP),
+        window_label: (16, 8, 5120, 5120, 0, 4600, GEMMA_WINDOW, GEMMA_CAP),
+        chunk_label: (16, 8, 256, 5120, 4352, 4608, GEMMA_WINDOW, GEMMA_CAP),
         "Gemma-2B MQA heads 8/1, prompt Sq=512 Skv=2048":
             (8, 1, 512, 2048, 0, 512, 0, 0.0),
     }
@@ -1013,13 +1038,27 @@ def parity_head_dim_256(g):
             k = _rand(g, (1, Skv, Hkv, D), dt)
             v = _rand(g, (1, Skv, Hkv, D), dt)
             o, ln = i32([off]), i32([n])
+            args = dict(window=win, softcap=cap)
+            out = kops.prefill_attention(q, k, v, o, ln, **args)
+            want = ref.chunked_prefill_attention_ref(q, k, v, o, ln, **args)
             ok &= judge_attention(
-                errs, "chunked_prefill_attention", f"D=256 {label}", dt,
-                kops.prefill_attention(q, k, v, o, ln, window=win,
-                                       softcap=cap),
-                ref.chunked_prefill_attention_ref(q, k, v, o, ln, window=win,
-                                                  softcap=cap))
-            del q, k, v
+                errs, "chunked_prefill_attention", f"D=256 {label}", dt, out,
+                want)
+            if dt == bf:
+                if label in by_case:
+                    by_case[label] = max_err(out, want)
+                ok &= judge_attention(
+                    errs, "chunked_prefill_attention", f"D=256 {label}, vs "
+                    "the kernel's arithmetic (split_p_ref)", dt, out,
+                    ref.chunked_prefill_attention_split_p_ref(q, k, v, o, ln,
+                                                              **args))
+            same = bool(torch.equal(out, kops.prefill_attention(q, k, v, o, ln,
+                                                                **args)))
+            ok &= same
+            log(f"[parity] chunked_prefill_attention {tag} D=256 {label}: two "
+                f"calls bit-equal: {same}")
+            del q, k, v, out, want
+        ok &= prefill_dead_keys(g, dt, *prefill_cases[chunk_label])
         for label, (Hq, Hkv, L, curs, win, cap) in decode_cases.items():
             B = len(curs)
             q = _rand(g, (B, Hq, D), dt)
@@ -1079,15 +1118,15 @@ def parity_head_dim_256(g):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                               enable_gqa=True)
 
-    def prefill_row(Sq, Skv, n, win, shape):
+    def prefill_row(Sq, Skv, off, n, win, shape):
         kv_bytes = (Sq * 16 + 2 * Skv * 8) * D * 2
         sets = []
         for _ in range(n_copies(kv_bytes)):
             q = _rand(g, (1, Sq, 16, D), bf)
             k, v = _rand(g, (1, Skv, 8, D), bf), _rand(g, (1, Skv, 8, D), bf)
-            sets.append((q, k, v, i32([0]), i32([n])))
+            sets.append((q, k, v, i32([off]), i32([n])))
         ar = torch.arange(Skv, device="cuda")
-        mask = (ar[None, :] <= torch.arange(Sq, device="cuda")[:, None]) \
+        mask = (ar[None, :] <= torch.arange(Sq, device="cuda")[:, None] + off) \
             & (ar[None, :] < n)
         return timed_row(
             lambda q, k, v, o, ln: kops.prefill_attention(
@@ -1097,20 +1136,20 @@ def parity_head_dim_256(g):
             sets, sdpa,
             [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
               mask[None, None]) for q, k, v, _, _ in sets],
-            bound=prefill_bound(sets[0][0], sets[0][1], [0], [n], win),
+            bound=prefill_bound(sets[0][0], sets[0][1], [off], [n], win),
             shape=shape)
 
     rows = {"chunked_prefill_attention": prefill_row(
-        512, 2048, 512, 0, "B=1 Sq=512 Skv=2048 Hq=16 Hkv=8 D=256 bf16, "
-        "softcap 50, offset 0, len 512")}
-    r = prefill_row(5120, 5120, 4600, GEMMA_WINDOW, "")
-    log(f"[time] prefill kernel D=256, Gemma-2-9B prompt past the window "
-        f"(Sq=5120 Skv=5120 len 4600, window 4096, softcap 50): "
-        f"{r['ms']:.4f} ms (graph; eager {r['eager_ms']:.4f} ms, host "
-        f"{r['host_us']:.1f} us/call); bound {r['bound'][0]:.4f} ms "
-        f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of it; plain "
-        f"{r['plain_ms']:.4f} ms (eager); SDPA with no softcap and no window "
-        f"{r['library_ms']:.4f} ms (eager {r['library_eager_ms']:.4f})")
+        512, 2048, 0, 512, 0, "B=1 Sq=512 Skv=2048 Hq=16 Hkv=8 D=256 bf16, "
+        "softcap 50, offset 0, len 512"),
+        "chunked_prefill_attention_window": prefill_row(
+        5120, 5120, 0, 4600, GEMMA_WINDOW, "B=1 Sq=5120 Skv=5120 Hq=16 Hkv=8 "
+        "D=256 bf16, softcap 50, window 4096, offset 0, len 4600"),
+        "chunked_prefill_attention_chunk": prefill_row(
+        256, 5120, 4352, 4608, GEMMA_WINDOW, "B=1 Sq=256 Skv=5120 Hq=16 "
+        "Hkv=8 D=256 bf16, softcap 50, window 4096, offset 4352, len 4608")}
+    errs["chunked_prefill_attention_window"] = by_case[window_label]
+    errs["chunked_prefill_attention_chunk"] = by_case[chunk_label]
 
     def decode(q, k, v, c):
         return kops.decode_attention_op(q, k, v, c, window=GEMMA_WINDOW,
@@ -1144,6 +1183,45 @@ def parity_head_dim_256(g):
     log(f"[parity] head dim 256 checks and times: "
         f"{time.perf_counter() - t0:.1f} s")
     return errs, rows
+
+
+def prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, off, n, win, cap):
+    """The prefill kernel at D = 256 with NaN in K and V at every key no
+    row can see (behind every row's window, at and past lengths): the
+    output bit-equal to the clean inputs', finite, within the bounds of the
+    plain version (and in bf16 of the kernel's arithmetic) on the clean
+    inputs, and two calls bit-equal.  bf16 loads those rows by TMA with
+    the live ones; they must weigh exactly 0.  Logs; returns ok."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    q = _rand(g, (1, Sq, Hq, 256), dt)
+    k, v = _rand(g, (1, Skv, Hkv, 256), dt), _rand(g, (1, Skv, Hkv, 256), dt)
+    o, ln, args = i32([off]), i32([n]), dict(window=win, softcap=cap)
+    clean = kops.prefill_attention(q, k, v, o, ln, **args)
+    wants = {"the plain version": ref.chunked_prefill_attention_ref(
+        q, k, v, o, ln, **args)}
+    if dt == torch.bfloat16:
+        wants["the kernel's arithmetic"] = \
+            ref.chunked_prefill_attention_split_p_ref(q, k, v, o, ln, **args)
+    for t in (k, v):
+        t[0, n:] = float("nan")
+        t[0, :max(off - win + 1, 0)] = float("nan")
+    dirty = kops.prefill_attention(q, k, v, o, ln, **args)
+    again = kops.prefill_attention(q, k, v, o, ln, **args)
+    torch.cuda.synchronize()
+    good = bool(torch.isfinite(dirty).all()) \
+        and bool(torch.equal(dirty, clean)) and bool(torch.equal(dirty, again))
+    errs = {"chunked_prefill_attention": 0.0}
+    for what, want in wants.items():
+        good &= judge_attention(errs, "chunked_prefill_attention",
+                                f"D=256 NaN in the dead keys, vs {what} on "
+                                "the clean inputs", dt, dirty, want)
+    tag = "bf16" if dt == torch.bfloat16 else "f32"
+    log(f"[parity] chunked_prefill_attention {tag} D=256 NaN in K/V behind "
+        f"the window and past lengths (Sq={Sq} off={off} len={n} "
+        f"Skv={Skv}): finite, bit-equal to the clean output and to itself: "
+        f"{'ok' if good else 'FAIL'}")
+    return good
 
 
 def parity_qwen_heads(g):
@@ -4259,6 +4337,17 @@ def main() -> int:
     for name in ("chunked_prefill_attention", "decode_attention"):
         src[f"{name}_d256"] = src[name]
         src[f"{name}_qwen"] = src[name]
+    # bf16 prefill at D = 256 is prefill_wg_kernel; beside Gemma-2-9B's
+    # prompt row, its prompt and its chunk past the 4096 window (the same
+    # kernel, so phase 6's launches)
+    src["chunked_prefill_attention_d256"] = (
+        "src/repro_torch/kernels/csrc/prefill_wg.cuh",
+        src["chunked_prefill_attention"][1])
+    for shape in ("window", "chunk"):
+        src[f"chunked_prefill_attention_{shape}_d256"] = \
+            src["chunked_prefill_attention_d256"]
+        launches[f"chunked_prefill_attention_{shape}_d256"] = \
+            launches["chunked_prefill_attention_d256"]
     kernels = [dict(name=n, route="cuda", source=src[n][0],
                     replaces=src[n][1], launches=launches[n],
                     max_abs_err=errs[n], ms=rows[n]["ms"],

@@ -22,7 +22,9 @@
 // of bf16 tensor-core work, but 0.032 ms on CUDA cores at 67 TFLOP/s f32.
 // So the bf16 path has to run both products on tensor cores.
 //
-// bf16 path (prefill_tc_kernel), FlashAttention-2 style with mma.sync:
+// bf16 path at D <= 128 (prefill_tc_kernel), FlashAttention-2 style with
+// mma.sync (at D = 256 bf16 runs prefill_wg_kernel: wgmma, TMA and a
+// warp-specialised producer, prefill_wg.cuh):
 //  * A block owns BM = 64 packed query rows of one kv head: row p is token
 //    p / G, query head p % G of the group, so the G heads that read one kv
 //    head share every K/V tile a block loads (read once per block, not G
@@ -46,10 +48,6 @@
 //    steps bound on outputs near zero (kernels/ref.py
 //    chunked_prefill_attention_split_p_ref shows both on the CPU); the pair
 //    keeps P to ~2^-16.  The row sum is taken from the f32 P.
-//  * D = 256 (Gemma): O is 128 f32 registers a thread, so Q's fragments
-//    are read from shared memory at each k-step instead of being held; the
-//    ring and Q take 168,960 B of shared memory, one block per SM (Gemma-2
-//    9B's 512-token prompt is 16 x 8 blocks: one wave on 132 SMs).
 //
 // f32 path (prefill_f32_kernel): the reference's 2e-5 needs f32 products
 // (TF32 keeps ~3 digits), so f32 inputs run on CUDA cores: one block per
@@ -57,12 +55,10 @@
 // widened to f32 in shared memory, one K/V tile of 16-byte loads ahead
 // (at D = 256 none ahead: the loads would take 128 registers a thread;
 // the tiles take 214,016 B of shared memory, one block per SM).
-//
-// wgmma + TMA (warp-specialised producer, 64-row warpgroup tiles) is the
-// next step for the bf16 path.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "prefill_wg.cuh"
 
 namespace repro_torch {
 namespace {
@@ -98,11 +94,6 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   constexpr int NT = kBK / 8;    // score n-tiles (8 keys) per tile
   constexpr int DT = D / 8;      // output n-tiles (8 columns)
   constexpr int KS = D / 16;     // k-steps of Q K^T
-  // Q in registers up to D = 128 (KS x 4 a thread); at D = 256 the O
-  // accumulator alone is 128 registers a thread, so Q's fragment is read
-  // from shared memory at each k-step instead (one more ldmatrix per 8 of
-  // K's and V's).
-  constexpr bool kQInRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sKV = sQ + kBM * LD;  // stage s: K, then V, each kBK x LD
@@ -160,12 +151,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  // This warp's Q fragment for k-step ks, from shared memory.
-  auto q_frag = [&](int ks, uint32_t (&r)[4]) {
-    ldsm_x4(r, sQ + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                   ks * 16 + (lane >> 4) * 8);
-  };
-  uint32_t qf[kQInRegs ? KS : 1][4];
+  // This warp's Q fragments (KS x 4 a thread), from shared memory once.
+  uint32_t qf[KS][4];
 
   for (int it = 0; it < ntiles; ++it) {
     const int kb = kb0 + it * kBK;
@@ -177,11 +164,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile it (and Q) landed for every thread
-    if constexpr (kQInRegs) {
-      if (it == 0) {
+    if (it == 0) {
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) q_frag(ks, qf[ks]);
-      }
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], sQ + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                            ks * 16 + (lane >> 4) * 8);
     }
     const __nv_bfloat16* sK = sKV + (size_t)(it & 1) * 2 * kBK * LD;
     const __nv_bfloat16* sV = sK + kBK * LD;
@@ -195,12 +182,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t a[4];
-      if constexpr (kQInRegs) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
-      } else {
-        q_frag(ks, a);
-      }
+      for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bf[4];
@@ -536,23 +519,24 @@ int launch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16 runs prefill_tc_kernel up to D = 128 and prefill_wg_kernel at 256.
 template <bool TC>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const void* offset, const void* lengths, void* out, int B,
                int Sq, int Skv, int Hq, int Hkv, int window, float softcap,
                float scale, cudaStream_t s) {
-#define REPRO_PREFILL_CASE(DD)                                               \
+#define REPRO_PREFILL_CASE(DD, BF16)                                         \
   case DD:                                                                   \
-    return TC ? launch_tc<DD>(q, k, v, offset, lengths, out, B, Sq, Skv, Hq, \
-                              Hkv, window, softcap, scale, s)                \
+    return TC ? BF16<DD>(q, k, v, offset, lengths, out, B, Sq, Skv, Hq, Hkv, \
+                         window, softcap, scale, s)                          \
               : launch_f32<DD>(q, k, v, offset, lengths, out, B, Sq, Skv,    \
                                Hq, Hkv, window, softcap, scale, s);
   switch (D) {
-    REPRO_PREFILL_CASE(16)
-    REPRO_PREFILL_CASE(32)
-    REPRO_PREFILL_CASE(64)
-    REPRO_PREFILL_CASE(128)
-    REPRO_PREFILL_CASE(256)
+    REPRO_PREFILL_CASE(16, launch_tc)
+    REPRO_PREFILL_CASE(32, launch_tc)
+    REPRO_PREFILL_CASE(64, launch_tc)
+    REPRO_PREFILL_CASE(128, launch_tc)
+    REPRO_PREFILL_CASE(256, launch_wg)
     default:
       return -1;
   }

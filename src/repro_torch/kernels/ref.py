@@ -77,7 +77,9 @@ def chunked_prefill_attention_ref(
 
 
 LOG2E = 1.4426950408889634
-PREFILL_TILE_KEYS = 64      # csrc/chunked_prefill_attention.cu kBK
+#: keys a tile of both bf16 prefill kernels: csrc/chunked_prefill_attention.cu
+#: kBK (D <= 128) and csrc/prefill_wg.cuh kWgBN (D = 256)
+PREFILL_TILE_KEYS = 64
 
 
 def chunked_prefill_attention_split_p_ref(

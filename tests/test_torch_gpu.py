@@ -738,6 +738,8 @@ D256_PREFILL = {
     "gemma2-prompt": (1, 512, 2048, 16, 8, 0, 50.0, [0], [512]),
     "gemma2-window-bites": (1, 256, 4864, 16, 8, 4096, 50.0, [4352],
                             [4600]),
+    "gemma2-prompt-past-the-window": (1, 1280, 1280, 16, 8, 1024, 50.0,
+                                      [0], [1200]),
     "gemma2-ragged-batch": (2, 96, 320, 16, 8, 64, 50.0, [100, 0],
                             [196, 60]),
     "gemma-2b-mqa": (2, 200, 512, 8, 1, 0, 0.0, [0, 300], [200, 500]),
@@ -750,8 +752,8 @@ D256_PREFILL = {
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", list(D256_PREFILL))
 def test_prefill_kernel_d256(cuda, case, dtype):
-    """Both prefill paths at D = 256 (bf16: tensor cores with Q's fragments
-    from shared memory; f32: CUDA cores without the register prefetch), with
+    """Both prefill paths at D = 256 (bf16: prefill_wg_kernel, wgmma on K/V
+    tiles loaded by TMA; f32: CUDA cores without the register prefetch), with
     Gemma-2's softcap, a window that bites, MQA and a row with no visible
     key: bf16 at 3e-2 and 2e-5 + 2 bf16 steps of the plain version and of
     the plain version with the kernel's rounding, f32 at 2e-5; two calls
@@ -776,6 +778,53 @@ def test_prefill_kernel_d256(cuda, case, dtype):
     again = kops.prefill_attention(q, k, v, o, n, window=window, softcap=cap)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
+
+
+D256_DEAD_KEYS = {
+    # id: (B, Sq, Skv, Hq, Hkv, window, softcap, offsets, lengths)
+    "gemma2-chunk-past-the-window": (1, 256, 4864, 16, 8, 4096, 50.0,
+                                     [4352], [4608]),
+    "gemma2-ragged-edges": (2, 150, 700, 16, 8, 300, 50.0, [500, 37],
+                            [650, 187]),
+    "gemma-2b-mqa-past-lengths": (2, 130, 512, 8, 1, 0, 0.0, [200, 0],
+                                  [330, 130]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(D256_DEAD_KEYS))
+def test_prefill_kernel_d256_nan_in_dead_keys(cuda, case, dtype):
+    """NaN in K and V at every key no row can see (behind every row's
+    window, at and past lengths) changes no bit of the output: the bf16
+    kernel's TMA tiles copy those rows into shared memory, where they must
+    weigh exactly 0.  Lengths and windows cut tiles of 64 keys in the
+    middle; held to the plain version on the clean inputs as in
+    test_prefill_kernel_d256."""
+    B, Sq, Skv, Hq, Hkv, window, cap, offs, lens = D256_DEAD_KEYS[case]
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + 1)
+    q = _randn(g, B, Sq, Hq, 256, dtype=dtype)
+    k = _randn(g, B, Skv, Hkv, 256, dtype=dtype)
+    v = _randn(g, B, Skv, Hkv, 256, dtype=dtype)
+    o = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    args = dict(window=window, softcap=cap)
+    clean = kops.prefill_attention(q, k, v, o, n, **args)
+    want = ref.chunked_prefill_attention_ref(q, k, v, o, n, **args)
+    for b, (off, ln) in enumerate(zip(offs, lens)):
+        for t in (k, v):
+            t[b, ln:] = float("nan")
+            if window:
+                t[b, :max(off - window + 1, 0)] = float("nan")
+    dirty = kops.prefill_attention(q, k, v, o, n, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean)
+    if dtype == torch.bfloat16:
+        _close(dirty, want, 3e-2)
+        _within_bf16_steps(dirty, want)
+    else:
+        _close(dirty, want, 2e-5)
 
 
 D256_DECODE = {

@@ -19,7 +19,7 @@ from repro_torch.configs import get_config
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / n for n in ("chip_smoke.py", "chip_compare.py",
-                          "chip_decode_sweep.py")]
+                          "chip_decode_sweep.py", "chip_prefill_probe.py")]
 
 
 #: the control plane, both simulators, the flight recorder, the
