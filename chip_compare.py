@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Time chip_smoke.py's phase 2 kernel rows of this checkout and of another
-checkout of the repo on one card, in turns, and check the prefill kernel's
-outputs: the same bits in both at D <= 128, within the bf16 bounds of the
-plain version at D = 256.
+checkout of the repo on one card, in turns, and check that the attention
+kernels give the same bits in both.
 
     python3 chip_compare.py OTHER_ROOT [--out FILE]
 
@@ -10,18 +9,17 @@ OTHER_ROOT is another checkout (an older commit unpacked with
 ``git archive``).  Each turn runs one checkout's phase 1 (build) and phase
 2 (parity and times) in a process of its own, so that each imports its own
 ``repro_torch``; the turns go other, this, this, other.  Before its
-phase 2, each turn runs the prefill kernel on phase 2's prefill shapes
-with inputs from seed 1 and saves the outputs; the first turn of each
-checkout's are compared bit for bit at D <= 128 (the outputs are kept
-under build/compare/, with each turn's rows).  At D = 256, where the bf16
-kernel is prefill_wg_kernel here and prefill_tc_kernel<256> before it,
-each turn holds its outputs to the plain version (kernels/ref.py
-chunked_prefill_attention_ref) on the same inputs: 3e-2 and 2e-5 + 2 bf16
-steps (chip_smoke.close, chip_smoke.bf16_bound_share).  Prints each row's
-kernel ms in every turn beside the card's name and power limit, and with
---out writes it all to FILE as JSON.  Exits 1 unless every D <= 128 shape
-is bit-equal and every D = 256 shape of both checkouts is within the
-bounds.  Needs one card.
+phase 2, each turn times the prefill kernel on phase 2's prefill shapes
+(bf16, inputs from seed 1) and saves its outputs there, then runs each of
+the four attention wrappers (prefill, decode, the rank-slice decode entry,
+paged decode) at every head dim in HEAD_DIMS, in bf16 and f32, on
+OUTPUT_CASES' inputs (each case's own seed) and saves those outputs too
+(under build/compare/, with each turn's rows).  Every saved output of the
+first turn of each checkout must be bit-equal to the other's, and the two
+turns of this checkout to each other.  Prints each row's kernel ms in
+every turn beside the card's name and power limit, and with --out writes it
+all to FILE as JSON.  Exits 1 unless every output is bit-equal.  Needs one
+card.
 """
 from __future__ import annotations
 
@@ -55,6 +53,84 @@ PREFILL_SHAPES = [
 ]
 
 
+#: the head dims both checkouts take (the kernels' outputs are compared at
+#: each) and the inputs of each wrapper there: (label, wrapper, shape
+#: arguments); every case runs in bf16 and f32
+HEAD_DIMS = (16, 32, 64, 128, 256)
+OUTPUT_CASES = [
+    ("prefill G=4", "prefill", dict(B=1, Sq=200, Skv=512, Hq=8, Hkv=2,
+                                    offs=[0], lens=[200], window=0,
+                                    softcap=0.0)),
+    ("prefill ragged, window 64, softcap 30", "prefill",
+     dict(B=2, Sq=96, Skv=320, Hq=8, Hkv=2, offs=[100, 0], lens=[196, 60],
+          window=64, softcap=30.0)),
+    ("decode G=8, window 300, softcap 30", "decode",
+     dict(B=4, L=1024, Hq=16, Hkv=2, cur=[1023, 0, 500, 700], window=300,
+          softcap=30.0)),
+    ("decode G=16", "decode", dict(B=3, L=1024, Hq=32, Hkv=2,
+                                   cur=[1023, 129, 5], window=0,
+                                   softcap=0.0)),
+    ("rank slice pos0=512 L=512, window 300", "partial",
+     dict(B=4, L=512, Hq=16, Hkv=2, pos0=512, cur=[1023, 600, 100, 700],
+          window=300, softcap=0.0)),
+    ("paged, interleaved 128-token pages", "paged",
+     dict(B=4, Hq=16, Hkv=2, cur=[0, 700, 1500, 2047])),
+]
+
+
+def kernel_outputs(seed0=7):
+    """The four attention wrappers' outputs on OUTPUT_CASES at every head
+    dim in HEAD_DIMS, bf16 and f32, as {label: cpu tensor}: the same
+    inputs in any checkout (each case's generator has its own seed)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops as kops
+    outs = {}
+    for i, (label, kind, a) in enumerate(OUTPUT_CASES):
+        for D in HEAD_DIMS:
+            for dt in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device="cuda").manual_seed(
+                    seed0 + 1000 * i + D)
+
+                def rand(*shape):
+                    return torch.randn(shape, generator=g,
+                                       device="cuda").to(dt)
+                if kind == "prefill":
+                    q = rand(a["B"], a["Sq"], a["Hq"], D)
+                    k, v = (rand(a["B"], a["Skv"], a["Hkv"], D)
+                            for _ in range(2))
+                    got = kops.prefill_attention(
+                        q, k, v, cs.i32(a["offs"]), cs.i32(a["lens"]),
+                        window=a["window"], softcap=a["softcap"])
+                elif kind == "decode":
+                    q = rand(a["B"], a["Hq"], D)
+                    k, v = (rand(a["B"], a["L"], a["Hkv"], D)
+                            for _ in range(2))
+                    got = kops.decode_attention_op(
+                        q, k, v, cs.i32(a["cur"]), window=a["window"],
+                        softcap=a["softcap"])
+                elif kind == "partial":
+                    q = rand(a["B"], a["Hq"], D)
+                    k, v = (rand(a["B"], a["L"], a["Hkv"], D)
+                            for _ in range(2))
+                    got = torch.cat([t.reshape(-1) for t in
+                                     kops.decode_attention_partial(
+                                         q, k, v, cs.i32(a["cur"]), a["pos0"],
+                                         window=a["window"],
+                                         softcap=a["softcap"])])
+                else:
+                    tables = torch.as_tensor(cs.interleaved_tables(
+                        [c + 1 for c in a["cur"]], 40, 16), device="cuda")
+                    q = rand(a["B"], a["Hq"], D)
+                    pk, pv = (rand(40, 128, a["Hkv"], D) for _ in range(2))
+                    got = kops.paged_decode_attention(q, pk, pv, tables,
+                                                      cs.i32(a["cur"]))
+                tag = "bf16" if dt == torch.bfloat16 else "f32"
+                outs[f"{label}, D={D} {tag}"] = got.cpu()
+    return outs
+
+
 def worker(root: Path, out: Path) -> int:
     """One turn: build, the prefill outputs, then phase 2, in `root`."""
     sys.path[:0] = [str(root), str(root / "src")]
@@ -62,11 +138,10 @@ def worker(root: Path, out: Path) -> int:
 
     import chip_smoke as cs
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ref
     card = cs.phase_build()
     g = torch.Generator(device="cuda").manual_seed(1)
-    outs, judged, prefill_ms = [], [], []
-    for _, B, Sq, Skv, Hq, Hkv, D, off, n, win, cap in PREFILL_SHAPES:
+    outs, prefill_ms = {}, []
+    for label, B, Sq, Skv, Hq, Hkv, D, off, n, win, cap in PREFILL_SHAPES:
         sets = []
         for _ in range(cs.n_copies((Sq * Hq + 2 * Skv * Hkv) * D * 2 * B)):
             q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda")
@@ -82,18 +157,12 @@ def worker(root: Path, out: Path) -> int:
         q, k, v, o, ln = sets[0]
         del sets
         got = kops.prefill_attention(q, k, v, o, ln, window=win, softcap=cap)
-        outs.append(got.cpu())
-        if D == 256:
-            want = ref.chunked_prefill_attention_ref(q, k, v, o, ln,
-                                                     window=win, softcap=cap)
-            judged.append([cs.bf16_bound_share(got, want),
-                           cs.close(got, want, 3e-2)])
-            del want
-        else:
-            judged.append(None)
+        outs[f"timed prefill {label}"] = got.cpu()
+        del q, k, v, got
+    outs.update(kernel_outputs())
     torch.save(outs, out.with_suffix(".pt"))
     _, rows = cs.phase_parity()
-    out.write_text(json.dumps({"card": card, "judged": judged,
+    out.write_text(json.dumps({"card": card,
                                "prefill_ms": prefill_ms, "rows": {
         name: {k: r.get(k) for k in ("ms", "eager_ms", "plain_ms",
                                      "library_ms", "bound", "shape")}
@@ -127,25 +196,18 @@ def main() -> int:
             print(f"chip_compare: turn {i} ({name}) failed", file=sys.stderr)
             return 1
         runs.append((name, out))
-    first = {n: next(o for m, o in runs if m == n) for n in trees}
-    got = {n: torch.load(first[n].with_suffix(".pt")) for n in trees}
+    saved = [torch.load(o.with_suffix(".pt")) for _, o in runs]
     data = [(n, json.loads(o.read_text())) for n, o in runs]
+    # turn 0 (other) against turn 1 (this), and this checkout's two turns
     verdict = {}
-    for i, (label, *_, D, _o, _n, _w, _c) in enumerate(PREFILL_SHAPES):
-        if D < 256:
-            verdict[label] = bool(torch.equal(got["other"][i],
-                                              got["this"][i]))
-            print(f"[compare] prefill {label}: bit-equal {verdict[label]}")
-            continue
-        held = [d["judged"][i] for _, d in data]
-        verdict[label] = all(share <= 1 and ok for share, ok in held)
-        print(f"[compare] prefill {label} (D = 256): against the plain "
-              f"version, each turn's share of the 2e-5 + 2 bf16 steps bound "
-              f"and 3e-2 held: " + ", ".join(
-                  f"{n} {share:.3g} {ok}"
-                  for (n, _), (share, ok) in zip(data, held))
-              + f"; bit-equal to the other checkout "
-              f"{bool(torch.equal(got['other'][i], got['this'][i]))}")
+    for label in saved[0]:
+        verdict[label] = bool(torch.equal(saved[0][label], saved[1][label])
+                              and torch.equal(saved[1][label],
+                                              saved[2][label]))
+        print(f"[compare] {label}: bit-equal to the other checkout and "
+              f"run to run: {verdict[label]}")
+    print(f"[compare] outputs bit-equal: {sum(verdict.values())} of "
+          f"{len(verdict)}")
     for i, (label, *_) in enumerate(PREFILL_SHAPES):
         print(f"[compare] prefill {label}: kernel ms (graph) " + ", ".join(
             f"{t}_{n} {d['prefill_ms'][i]:.4f}"
@@ -168,7 +230,7 @@ def main() -> int:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps({
             "card": data[0][1]["card"], "turns": turns,
-            "prefill_held": verdict,
+            "bit_equal": verdict,
             "prefill_ms": {p[0]: [d["prefill_ms"][i] for _, d in data]
                            for i, p in enumerate(PREFILL_SHAPES)},
             "rows": table}, indent=1))

@@ -8,11 +8,12 @@ Phases (any failure exits non-zero; nothing is skipped):
                (one nvcc each, in parallel) and print every instantiation's
                ptxas registers and spills (no decode and no bf16 prefill
                instantiation may spill; the D = 256 bf16 prefill kernel's
-               registers on a line of their own); the bf16 decode kernel's
-               blocks an SM by head dim
+               registers on a line of their own; the ten D = 112
+               instantiations on a line of their own, none spilling); the
+               bf16 decode kernel's blocks an SM by head dim
                from the card's occupancy calculator, held to the split
-               rule's count (kernels/ops.decode_blocks_per_sm) at 64, 128
-               and 256
+               rule's count (kernels/ops.decode_blocks_per_sm) at 64, 112,
+               128 and 256
   2. parity  — each kernel against its plain PyTorch version on the card:
                attention at Llama-3.1-8B heads at the main-path shapes
                and at phase 11's (a chunk of the planned size into a
@@ -57,11 +58,22 @@ Phases (any failure exits non-zero; nothing is skipped):
                then the two attention kernels at Qwen-2.5-32B's heads (40
                over 8, G = 5) at the main path's shapes, bf16 and f32, and
                their times beside the bound, plain version and SDPA; then
+               the three attention kernels at Kimi K2's head dim 112 (64 /
+               8 heads, G = 8) in bf16 and f32: prefill at a prompt, a
+               chunk at an offset with window and softcap and a ragged
+               batch (bf16 also against its own arithmetic), decode at the
+               decode rows' lengths and with a window across split
+               boundaries (also against the split-and-merge version and in
+               bf16 the tensor-core kernel's arithmetic), paged bit-equal
+               to contiguous, every call bit-equal to itself, and rows 1k
+               (prefill B=1 Sq=512 Skv=2048) and 2k (decode B=4 L=2048)
+               timed beside the bound, plain version and SDPA; then
                the decode kernel's rank-slice entry (decode_attention_
                partial: one slice of a cache split over its positions,
                f32 o and lse) against its plain version at Llama-3.1-8B's,
                Gemma-2-9B's (D = 256, window 4096 starting mid-slice,
-               softcap 50) and Qwen-2.5-32B's heads, 4 slices, cur_len on a
+               softcap 50), Qwen-2.5-32B's and Kimi K2's (D = 112, a window
+               starting mid-slice) heads, 4 slices, cur_len on a
                slice boundary and slices with no live key, bf16 and f32
                within 2e-5, bit-equal to itself, the slices merged against
                the one-pass plain decode; its time on a rank's slice of
@@ -100,7 +112,8 @@ Phases (any failure exits non-zero; nothing is skipped):
                f32: within 1e-3); the same two profiles
   7. exact   — the f32 SMOKE configs (Llama, RWKV-6, Gemma-2 with prompts
                past its 64-token window, Llama with the int8 KV cache,
-               DeepSeek-V2-Lite, Kimi K2, Jamba with prompts past the
+               DeepSeek-V2-Lite, Kimi K2, Kimi K2 at head dim 112 (d_model
+               448 over 4 / 2 heads), Jamba with prompts past the
                16-token chunk) served by PDCluster, the MoE / Mamba ones
                also by a convertible Engine, and Llama-3.2-Vision by an
                Engine with an image per request, give the same tokens as
@@ -133,7 +146,7 @@ Phases (any failure exits non-zero; nothing is skipped):
                exact and the rest within the reference's 5%, then
                compare_policies at the H100 profile; the Token Velocity
                profile (an analytic H100 roofline) beside what phases 3,
-               8 and 9 measured (printed only), each of their transfers
+               8, 9 and 17 measured (printed only), each of their transfers
                held to hardware.kv_bytes_per_token per rounded token; a
                full-width Llama-3.1-8B convertible Engine (max_len 4096)
                at the chunk plan_convertible picks for one H100 (2816
@@ -267,8 +280,25 @@ Phases (any failure exits non-zero; nothing is skipped):
                (the biases printed).  Each rank's launches, peak
                GiB and walls (not a TP speed)
 
-Phases run in this order, one after another; each frees its model before
-the next, and each one's wall time is printed as "[phase] name: s".
+ 17. kimi    — Kimi K2 at its published widths (d_model 7168, 64 / 8 heads
+               of 112, vocabulary 163,840; a dense first layer of d_ff
+               18,432, then 384 experts of d_ff 2048, top-8, + 1 shared),
+               its depth cut to 2 of 61 layers (19.93 B parameters, 37.1
+               GiB in bf16, seed 0; the dense MoE path runs every expert on
+               every token, as the reference) on phase 3's PD traffic (the
+               Scaler boots at most 2 of a kind): every request completes,
+               a mixed step runs, both attention kernels launch at D = 112
+               (their counters go into the kernels line as the _kimi
+               rows), every transfer is 7,168 B per 128-rounded token; the
+               two profiles; the logits by phase 3's bf16 rule (or the
+               plain path's own spread beside it), then the dense first
+               layer in f32 at full width within 2e-4 of max |logit|; the
+               phase's peak device memory and wall
+
+Phases run one after another in the order 1-9, 17, 10-16 (phase
+17 runs after phase 9, so that phase 11 sets its figures beside the
+control plane's); each frees its model before the next, and each one's
+wall time is printed as "[phase] name: s".
 The second-to-last line is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -512,11 +542,13 @@ def phase_build():
     build.build_all()
     log(f"[build] all {len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t:.1f} s")
-    d256, decode, prefill = {}, {}, {}
+    d256, d112, decode, prefill = {}, {}, {}, {}
     for name in build.SOURCES:
         rep = ptxas_report(build.build_log(name))
         log(f"[build] {name}: ptxas {rep}")
         d256.update({k: v for k, v in rep.items() if "256" in k.split("<")[1]})
+        d112.update({f"{name}: {k}": v for k, v in rep.items()
+                     if "112" in k.split("<")[1].rstrip(">").split(",")})
         if "decode" in name:
             decode.update({f"{name}: {k}": v for k, v in rep.items()})
         # the bf16 prefill kernels: mma.sync at D <= 128, wgmma at 256
@@ -524,6 +556,11 @@ def phase_build():
                         if k.startswith(("prefill_tc_kernel",
                                          "prefill_wg_kernel"))})
     log(f"[build] head dim 256 instantiations: ptxas {d256}")
+    spills = {k: v for k, v in d112.items() if "spills 0/0 B" not in v}
+    log(f"[build] head dim 112 instantiations: ptxas {d112}; spilling: "
+        f"{spills}")
+    check(len(d112) == 10 and not spills,
+          "a head dim 112 instantiation spills or is missing")
     spills = {k: v for k, v in decode.items() if "spills 0/0 B" not in v}
     log(f"[build] decode instantiations: {len(decode)}, spilling: {spills}")
     check(decode and not spills, "a decode instantiation spills")
@@ -534,7 +571,7 @@ def phase_build():
     spills = {k: v for k, v in prefill.items() if "spills 0/0 B" not in v}
     log(f"[build] bf16 prefill instantiations: {len(prefill)}, spilling: "
         f"{spills}")
-    check(len(wg) == 2 and len(prefill) == 6 and not spills,
+    check(len(wg) == 2 and len(prefill) == 7 and not spills,
           "a bf16 prefill instantiation spills or is missing")
     # the bf16 decode kernel's blocks an SM, as the split rule counts them
     # and as the card's occupancy calculator gives them
@@ -544,7 +581,7 @@ def phase_build():
            for D in kops.HEAD_DIMS}
     log(f"[build] bf16 decode blocks an SM by head dim (card, split rule): "
         f"{occ}")
-    check(all(occ[D][0] == occ[D][1] for D in (64, 128, 256)),
+    check(all(occ[D][0] == occ[D][1] for D in (64, 112, 128, 256)),
           "the split rule's blocks an SM differ from the card's at the "
           "zoo's head dims")
     smi = subprocess.run(
@@ -814,6 +851,10 @@ def phase_parity():
     for name in rq:
         errs[f"{name}_qwen"] = eq[name]
         rows[f"{name}_qwen"] = rq[name]
+    ek, rk = parity_head_dim_112(g)
+    for name in rk:
+        errs[f"{name}_kimi"] = ek[name]
+        rows[f"{name}_kimi"] = rk[name]
     errs["decode_attention_partial"], rows["decode_attention_partial"] = \
         parity_partial(g)
     for name, r in rows.items():
@@ -880,7 +921,8 @@ def parity_decode_groups(g):
 #: window, softcap, cur_lens): Llama-3.1-8B's heads on phase 15 (a)'s
 #: 2048-position cache in 4 slices, cur_len on and beside a slice
 #: boundary and at 0 (slices with no live key); Gemma-2-9B's D = 256 with
-#: its 4096 window starting mid-slice and softcap 50; Qwen-2.5-32B's G = 5
+#: its 4096 window starting mid-slice and softcap 50; Qwen-2.5-32B's G = 5;
+#: Kimi K2's D = 112 (G = 8) with a window starting mid-slice
 PARTIAL_PARITY = [
     ("Llama heads L=2048 in 4 slices", 2048, 4, 32, 8, 128, 0, 0.0,
      [511, 512, 0, 2047]),
@@ -888,6 +930,8 @@ PARTIAL_PARITY = [
      8192, 4, 16, 8, 256, 4096, 50.0, [8191, 5000, 3000, 100]),
     ("Qwen-2.5-32B heads G=5 L=2048 in 4 slices", 2048, 4, 40, 8, 128, 0,
      0.0, [2047, 1000, 513, 3]),
+    ("Kimi K2 heads D=112 L=2048 in 4 slices, window 700 starting "
+     "mid-slice", 2048, 4, 64, 8, 112, 700, 0.0, [2047, 1000, 512, 0]),
 ]
 #: the timed slice: rank 1's of phase 15 (a)'s cache (positions 512 ..
 #: 1023 of 2048), every row with a live key there
@@ -1308,6 +1352,164 @@ def parity_qwen_heads(g):
         bound=decode_bound(dsets[0][0], dsets[0][1], DECODE_CUR, 0),
         shape="B=4 L=2048 Hq=40 Hkv=8 D=128 bf16, cur_lens "
               "0/700/1500/2047 (Qwen-2.5-32B heads)")
+    return errs, rows
+
+
+#: phase 2's cases at head dim 112 (Kimi K2: 64 / 8 heads, G = 8).
+#: Prefill: label -> (B, Sq, Skv, offsets, lengths, window, softcap)
+KIMI_PREFILL = {
+    "Kimi heads, prompt Sq=512 Skv=2048 len=512": (1, 512, 2048, [0], [512],
+                                                   0, 0.0),
+    "Kimi heads, chunk Sq=256 off=1536 Skv=2048 len=1700, window 1024, "
+    "softcap 50": (1, 256, 2048, [1536], [1700], 1024, 50.0),
+    "Kimi heads, ragged batch B=2 Sq=320 off=[300, 0] len=[600, 200], "
+    "window 256": (2, 320, 1024, [300, 0], [600, 200], 256, 0.0),
+}
+#: Decode: label -> (L, cur_lens, window, softcap); splits of 128 positions
+KIMI_DECODE = {
+    f"Kimi heads B=4 L=2048 cur={DECODE_CUR}": (2048, DECODE_CUR, 0, 0.0),
+    "Kimi heads B=4 L=2048 cur=[1023, 128, 1500, 2047], window 600 across "
+    "split boundaries": (2048, [1023, 128, 1500, 2047], 600, 0.0),
+}
+
+
+def parity_head_dim_112(g):
+    """The three attention kernels at head dim 112 (Kimi K2, 64 / 8 heads)
+    against their plain versions, in bf16 (3e-2 and 2e-5 + 2 bf16 steps)
+    and f32 (2e-5): prefill (prefill_tc_kernel<112>, prefill_f32_kernel<112>)
+    at a prompt, a chunk at an offset with a window and softcap, a ragged
+    batch, in bf16 also against its own arithmetic
+    (chunked_prefill_attention_split_p_ref); decode (decode_tc_kernel<112>,
+    decode_split_kernel<f32, 112>) at the decode rows' cache lengths and
+    with a window across split boundaries, also against the plain
+    split-and-merge version and in bf16 the tensor-core kernel's
+    arithmetic; paged decode over interleaved pages, bit-equal to the
+    contiguous kernel on the gathered KV; every kernel bit-equal to itself
+    (the rank-slice entry's case at these heads is in PARTIAL_PARITY).
+    Then rows 1k and 2k: prefill at B=1 Sq=512 Skv=2048 (len 512) and
+    decode at B=4 L=2048 (DECODE_CUR), each beside its bound, the plain
+    version and SDPA (the same function: no window, no softcap).  Returns
+    (bf16 errors, rows) keyed by kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    bf, f32, Hq, Hkv, D = torch.bfloat16, torch.float32, 64, 8, 112
+    errs = {"chunked_prefill_attention": 0.0, "decode_attention": 0.0,
+            "paged_decode_attention": 0.0}
+    ok = True
+    tables = torch.as_tensor(interleaved_tables([c + 1 for c in DECODE_CUR],
+                                                40, 16), device="cuda")
+    safe = tables.clamp(min=0).long()
+    pcur = i32(DECODE_CUR)
+    for dt in (bf, f32):
+        tag = "bf16" if dt == bf else "f32"
+        for label, (B, Sq, Skv, offs, lens, win, cap) in KIMI_PREFILL.items():
+            q = _rand(g, (B, Sq, Hq, D), dt)
+            k = _rand(g, (B, Skv, Hkv, D), dt)
+            v = _rand(g, (B, Skv, Hkv, D), dt)
+            o, ln, args = i32(offs), i32(lens), dict(window=win, softcap=cap)
+            out = kops.prefill_attention(q, k, v, o, ln, **args)
+            ok &= judge_attention(
+                errs, "chunked_prefill_attention", f"D=112 {label}", dt, out,
+                ref.chunked_prefill_attention_ref(q, k, v, o, ln, **args))
+            if dt == bf:
+                ok &= judge_attention(
+                    errs, "chunked_prefill_attention", f"D=112 {label}, vs "
+                    "the kernel's arithmetic (split_p_ref)", dt, out,
+                    ref.chunked_prefill_attention_split_p_ref(q, k, v, o, ln,
+                                                              **args))
+            same = bool(torch.equal(out, kops.prefill_attention(q, k, v, o, ln,
+                                                                **args)))
+            ok &= same
+            log(f"[parity] chunked_prefill_attention {tag} D=112 {label}: two "
+                f"calls bit-equal: {same}")
+        for label, (L, curs, win, cap) in KIMI_DECODE.items():
+            B, cur, args = len(curs), i32(curs), dict(window=win, softcap=cap)
+            q = _rand(g, (B, Hq, D), dt)
+            k, v = _rand(g, (B, L, Hkv, D), dt), _rand(g, (B, L, Hkv, D), dt)
+            out = kops.decode_attention_op(q, k, v, cur, **args)
+            split, nsplit = kops.decode_split(L, B, Hkv, D)
+            wants = {"plain": ref.decode_attention_ref(q, k, v, cur, **args),
+                     f"plain split-and-merge ({nsplit} splits of {split})":
+                     ref.decode_attention_split_ref(q, k, v, cur, split,
+                                                    **args)}
+            if dt == bf:
+                wants["the tensor-core kernel's arithmetic"] = \
+                    ref.decode_attention_split_p_ref(q, k, v, cur, split,
+                                                     **args)
+            for what, want in wants.items():
+                ok &= judge_attention(errs, "decode_attention",
+                                      f"D=112 {label} vs {what}", dt, out,
+                                      want)
+            same = bool(torch.equal(out, kops.decode_attention_op(
+                q, k, v, cur, **args)))
+            ok &= same
+            log(f"[parity] decode_attention {tag} D=112 {label}: two calls "
+                f"bit-equal: {same}")
+        q = _rand(g, (4, Hq, D), dt)
+        pk, pv = _rand(g, (40, 128, Hkv, D), dt), _rand(g, (40, 128, Hkv, D), dt)
+        out = kops.paged_decode_attention(q, pk, pv, tables, pcur)
+        split, _ = kops.decode_split(16 * 128, 4, Hkv, D, 128)
+        label = f"D=112 Kimi heads B=4 cur={DECODE_CUR} interleaved pages"
+        ok &= judge_attention(
+            errs, "paged_decode_attention", label, dt, out,
+            ref.paged_decode_attention_ref(q, pk, pv, tables, pcur))
+        ok &= judge_attention(
+            errs, "paged_decode_attention", f"{label}, vs the plain "
+            "split-and-merge version", dt, out,
+            ref.paged_decode_attention_split_ref(q, pk, pv, tables, pcur,
+                                                 split))
+        gk = pk[safe].reshape(4, -1, Hkv, D)
+        gv = pv[safe].reshape(4, -1, Hkv, D)
+        same = bool(torch.equal(out, kops.decode_attention_op(q, gk, gv, pcur))
+                    and torch.equal(out, kops.paged_decode_attention(
+                        q, pk, pv, tables, pcur)))
+        ok &= same
+        log(f"[parity] paged_decode_attention {tag} {label}: bit-equal to "
+            f"the contiguous decode kernel on the gathered KV and to "
+            f"itself: {same}")
+    check(ok, "head dim 112 kernel parity failed")
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              enable_gqa=True)
+
+    sets = []
+    for _ in range(n_copies((512 * Hq + 2 * 2048 * Hkv) * D * 2)):
+        q = _rand(g, (1, 512, Hq, D), bf)
+        k, v = _rand(g, (1, 2048, Hkv, D), bf), _rand(g, (1, 2048, Hkv, D), bf)
+        sets.append((q, k, v, i32([0]), i32([512])))
+    ar = torch.arange(2048, device="cuda")
+    mask = (ar[None, :] <= torch.arange(512, device="cuda")[:, None]) \
+        & (ar[None, :] < 512)
+    rows = {"chunked_prefill_attention": timed_row(
+        kops.prefill_attention, ref.chunked_prefill_attention_ref, sets, sdpa,
+        [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+          mask[None, None]) for q, k, v, _, _ in sets],
+        bound=prefill_bound(sets[0][0], sets[0][1], [0], [512], 0),
+        shape="B=1 Sq=512 Skv=2048 Hq=64 Hkv=8 D=112 bf16, offset 0, "
+              "len 512 (Kimi K2 heads)")}
+    del sets
+    curs, dsets = i32(DECODE_CUR), []
+    for _ in range(n_copies(4 * 2048 * Hkv * D * 2 * 2)):
+        q = _rand(g, (4, Hq, D), bf)
+        k, v = _rand(g, (4, 2048, Hkv, D), bf), _rand(g, (4, 2048, Hkv, D), bf)
+        dsets.append((q, k, v, curs))
+    dmask = torch.arange(2048, device="cuda")[None, :] <= curs[:, None]
+    rows["decode_attention"] = timed_row(
+        kops.decode_attention_op, ref.decode_attention_ref, dsets, sdpa,
+        [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+          dmask[:, None, None]) for q, k, v, _ in dsets],
+        bound=decode_bound(dsets[0][0], dsets[0][1], DECODE_CUR, 0),
+        shape="B=4 L=2048 Hq=64 Hkv=8 D=112 bf16, cur_lens "
+              "0/700/1500/2047 (Kimi K2 heads)")
+    log(f"[time] decode_attention D=112 device us per call by kernel "
+        f"(torch.profiler): "
+        f"{device_us_by_kernel(kops.decode_attention_op, dsets)}")
+    log(f"[parity] head dim 112 checks and times: "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs, rows
 
 
@@ -1957,7 +2159,7 @@ def phase_gemma():
 
 
 def check_logits(cfg, model, prompt, max_len, tag, kernel, swap, swap_what,
-                 bf16="argmax", f32_layers=0, img=None):
+                 bf16="argmax", f32_layers=0, img=None, f32_tol=1e-3):
     """One prompt's last-token logits through the kernels and through their
     plain versions.  In bf16 the two differ where f32 results round to
     different bf16 values, and many layers amplify that; the plain path's
@@ -1970,8 +2172,8 @@ def check_logits(cfg, model, prompt, max_len, tag, kernel, swap, swap_what,
     roundings of this model meet it), finite.  Then the same model
     converted in place to f32 (same weights, full width; with `f32_layers`
     cut to its first f32_layers layers first, for a model whose f32 copy
-    does not fit the card), where the kernels must agree within 1e-3 of the
-    largest |logit| with the same argmax.  `img` is a vision model's
+    does not fit the card), where the kernels must agree within `f32_tol`
+    of the largest |logit| with the same argmax.  `img` is a vision model's
     image."""
     from repro_torch.models import ops as mops
     what = f"L={len(prompt)}"
@@ -2011,7 +2213,9 @@ def check_logits(cfg, model, prompt, max_len, tag, kernel, swap, swap_what,
         last_logits(cfg32, model, prompt, max_len, image=img),
         last_logits(cfg32, model, prompt, max_len, plain=True, image=img),
         tag, f"f32 weights and activations, {kernel} vs plain ({what})")
-    check(finite and same and share <= 1e-3,
+    log(f"[{tag}] f32: within {f32_tol:g} of max |logit|: "
+        f"{share <= f32_tol}")
+    check(finite and same and share <= f32_tol,
           f"{tag}: f32 kernel and plain logits disagree")
 
 
@@ -2124,8 +2328,10 @@ def _same_as_greedy(cfg, model, reqs, new=6):
 def phase_exact():
     """The f32 SMOKE configs served on the card give greedy_generate's
     tokens there: Llama, RWKV-6, Gemma-2 past its window and int8 Llama by
-    PDCluster; DeepSeek-V2-Lite (MLA, MoE), Kimi K2 (MoE, GQA) and Jamba
-    (Mamba, MoE; prompts past the 16-token chunk) by PDCluster and by a
+    PDCluster; DeepSeek-V2-Lite (MLA, MoE), Kimi K2 (MoE, GQA; at head
+    dim 64, and at its published 112 with d_model 448 over its 4 / 2
+    heads) and Jamba (Mamba, MoE; prompts past the 16-token chunk) by
+    PDCluster and by a
     convertible Engine of 2 slots and 16-token chunks (chunks from carried
     latent and Mamba states, reused slots); Llama-3.2-Vision by an Engine
     with an image per request and the cross-attention gates at 1."""
@@ -2144,6 +2350,8 @@ def phase_exact():
              ", int8 KV cache"),
             ("deepseek_v2_lite_16b", {}, short, 96, ""),
             ("kimi_k2_1t_a32b", {}, short, 96, ""),
+            ("kimi_k2_1t_a32b", {"d_model": 448}, short, 96,
+             ", head dim 112"),
             ("jamba_v0_1_52b", {}, [40, 12, 5, 33, 20], 96,
              ", prompts past the 16-token chunk"),
             ("llama_3_2_vision_11b", {}, short, 96, ", an image each")):
@@ -2198,12 +2406,17 @@ def phase_exact():
                   f"exact tokens, convertible ({arch}{what})")
 
 
-def full_model(arch, tag):
-    """The config at its published widths and depth, with random bf16
-    weights from seed 0 made on the card."""
+def full_model(arch, tag, num_layers=None):
+    """The config at its published widths and depth (or its first
+    `num_layers` layers), with random bf16 weights from seed 0 made on the
+    card."""
     from repro_torch.configs import get_config
     from repro_torch.models import count_params, init_params
     cfg = get_config(arch)
+    depth = ""
+    if num_layers is not None:
+        depth = f", depth cut to {num_layers} of {cfg.num_layers} layers"
+        cfg = cfg.replace(num_layers=num_layers)
     t = time.perf_counter()
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
@@ -2214,7 +2427,8 @@ def full_model(arch, tag):
     if cfg.sliding_window:
         heads += f", window {cfg.sliding_window} on its local layers"
     log(f"[{tag}] {cfg.name}: {count_params(model) / 1e9:.2f}B params "
-        f"({cfg.num_layers}L d={cfg.d_model}, {heads}) made on the card in "
+        f"({cfg.num_layers}L d={cfg.d_model}, {heads}{depth}) made on the "
+        f"card in "
         f"{time.perf_counter() - t:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     if cfg.num_vision_tokens:           # tanh(0) would silence the images
@@ -2323,6 +2537,59 @@ def phase_deepseek():
     check(finite and same and share <= 0.05,
           "deepseek: kernel and plain logits disagree")
     return figures
+
+
+KIMI_LAYERS = 2          # phase 17: Kimi K2's dense first layer + one MoE
+KIMI_F32_LAYERS = 1      # its f32 logits check: the dense layer (11.4 GB)
+KIMI_F32_TOL = 2e-4      # the reference's model tolerance, of max |logit|
+KIMI_PAYLOAD = 7168      # B a token: 2 layers x (K, V) x 8 heads x 112 x 2 B
+
+
+def phase_kimi():
+    """Kimi K2 at its published widths (d_model 7168, 64 / 8 heads of 112,
+    vocabulary 163,840, rope theta 5e4; the dense first layer's d_ff
+    18,432, then 384 experts of d_ff 2048, top-8, and one shared expert),
+    its depth cut to KIMI_LAYERS of 61: one dense layer and one MoE layer,
+    19.93 B parameters, 37.1 GiB in bf16 from seed 0, made on the card.
+    The dense MoE path runs all 384 experts on every token, as the
+    reference does.  On the main path's PD traffic (the Scaler boots at
+    most 2 instances of a kind; the weights are shared): every request
+    completes, a mixed step runs, both attention kernels launch at D = 112
+    (their counters, read around the traffic, go into the kernels line as
+    the _kimi rows), every transfer is 7,168 B per 128-rounded token; the
+    velocity figures and the two profiles; the logits by phase 3's bf16
+    rule (or the plain path's own spread beside it), then the dense first
+    layer alone in f32 at full width within 2e-4 of max |logit| (two
+    layers in f32, 80 GB, do not fit).  Prints the phase's peak device
+    memory and wall."""
+    from repro_torch.core import hardware
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = full_model("kimi_k2_1t_a32b", "kimi", KIMI_LAYERS)
+    check(cfg.head_dim_ == 112 and cfg.d_model == 7168
+          and cfg.moe.num_experts == 384,
+          f"kimi: not at its published widths ({cfg})")
+    check(int(hardware.kv_bytes_per_token(cfg)) == KIMI_PAYLOAD,
+          "kimi: kv_bytes_per_token")
+    run = drive_pd(cfg, model, "kimi", max_instances=2)
+    launches = {n: run["launches"][n]
+                for n in ("chunked_prefill_attention", "decode_attention")}
+    bytes_ok = payloads_ok(run, "kimi", cfg)
+    check(run["done"] == run["n"], "kimi: not every request completed")
+    check(run["mixed"] > 0, "kimi: no mixed (convertible) step ran")
+    check(all(n > 0 for n in launches.values()), f"kimi launches {launches}")
+    check(bytes_ok, "kimi payload sizes")
+    figures = velocity_figures(cfg, model, run, bytes_ok)
+    check_logits(cfg, model, run["reqs"][3].prompt, run["max_len"], "kimi",
+                 "attention kernels", SDPA_F32_P,
+                 "with P and P.V in f32 vs P in bf16", bf16="rule",
+                 f32_layers=KIMI_F32_LAYERS, f32_tol=KIMI_F32_TOL)
+    log(f"[kimi] peak device memory over the phase "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+        f"{time.perf_counter() - t0:.1f} s (depth cut to {KIMI_LAYERS} of "
+        f"61 layers)")
+    del model
+    return launches, figures
 
 
 def phase_vision():
@@ -2553,7 +2820,8 @@ def control_goldens():
 
 def control_velocity(figures, card):
     """Part 2 of phase 11: the control plane's Token Velocity profile (an
-    analytic roofline of one H100) beside what phases 3, 8 and 9 measured.
+    analytic roofline of one H100) beside what phases 3, 8, 9 and 17
+    measured (phase 17's at its cut depth, the profile of the same cut).
     Printed only (those phases held every transfer to
     hardware.kv_bytes_per_token per rounded token)."""
     from repro_torch.core import CHIPS, InstanceSpec, hardware, profile
@@ -4308,6 +4576,9 @@ def main() -> int:
     for name, n in qwen.items():
         launches[f"{name}_qwen"] = n
     figures["deepseek_v2_lite_16b"] = timed(phase_deepseek)
+    kimi, figures["kimi_k2_1t_a32b"] = timed(phase_kimi)
+    for name, n in kimi.items():
+        launches[f"{name}_kimi"] = n
     timed(phase_vision)
     timed(phase_control, figures, card)
     timed(phase_train, card)
@@ -4333,10 +4604,12 @@ def main() -> int:
     # WKV6 on a rank's heads of RWKV-6 3B (phase 16 (a))
     src["wkv6_rank"] = src["wkv6"]
     # the same two kernels' D = 256 instantiations, on Gemma-2-9B's path,
-    # and at Qwen-2.5-32B's heads (G = 5), on its path
+    # at Qwen-2.5-32B's heads (G = 5), on its path, and at Kimi K2's head
+    # dim 112 (64 / 8 heads), on its path (phase 17)
     for name in ("chunked_prefill_attention", "decode_attention"):
         src[f"{name}_d256"] = src[name]
         src[f"{name}_qwen"] = src[name]
+        src[f"{name}_kimi"] = src[name]
     # bf16 prefill at D = 256 is prefill_wg_kernel; beside Gemma-2-9B's
     # prompt row, its prompt and its chunk past the 4096 window (the same
     # kernel, so phase 6's launches)

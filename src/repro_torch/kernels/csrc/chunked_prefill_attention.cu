@@ -520,6 +520,9 @@ int launch_f32(const void* q, const void* k, const void* v,
 }
 
 // bf16 runs prefill_tc_kernel up to D = 128 and prefill_wg_kernel at 256.
+// D = 112 (Kimi K2) is prefill_tc_kernel's 14 output n-tiles and 7 k-steps:
+// its padded row of 120 bf16 (240 B) keeps every ldmatrix row 16-byte
+// aligned, and 8 rows at that stride fall in 8 disjoint 4-bank groups.
 template <bool TC>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const void* offset, const void* lengths, void* out, int B,
@@ -535,6 +538,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
     REPRO_PREFILL_CASE(16, launch_tc)
     REPRO_PREFILL_CASE(32, launch_tc)
     REPRO_PREFILL_CASE(64, launch_tc)
+    REPRO_PREFILL_CASE(112, launch_tc)
     REPRO_PREFILL_CASE(128, launch_tc)
     REPRO_PREFILL_CASE(256, launch_wg)
     default:

@@ -101,6 +101,8 @@ extern "C" int decode_blocks_per_sm(int D) {
       return tc_blocks_per_sm<32>();
     case 64:
       return tc_blocks_per_sm<64>();
+    case 112:
+      return tc_blocks_per_sm<112>();
     case 128:
       return tc_blocks_per_sm<128>();
     case 256:

@@ -78,7 +78,8 @@
 //    comes from the f32 P.
 //  * Four warps a block.  A tile is KW blocks of 16 keys, and DW warps
 //    share each block, each taking D / DW of O's columns (TcTile<D>: at
-//    D <= 128 four blocks of 16 keys; at D = 256 two, with O^T split
+//    D <= 128 four blocks of 16 keys, at D = 112 (Kimi K2) 7 k-steps of
+//    K Q^T and 7 m-tiles of O^T; at D = 256 two, with O^T split
 //    between the warps of a pair, so a lane holds 32 accumulators, not
 //    64).  Each key block keeps its own online softmax, and the blocks'
 //    states are merged once, at the end of the split.  The tiles (K then
@@ -93,8 +94,9 @@
 //
 // f32 (decode_split_kernel): K/V tiles of TR rows stay f32 in a ring of
 // kStages shared-memory slots, filled by 16-byte cp.async, Q in registers.
-// Each warp takes its own rows of every tile (up to a warp's 32 lanes per
-// row, 16 bytes or, at D = 256, twice 16 bytes a lane) and keeps its own
+// Each warp takes its own rows of every tile (a power of two of lanes per
+// row, up to a warp's 32; 16 bytes or, at D = 256, twice 16 bytes a lane;
+// at D = 112 a row's 28 chunks take 28 of the 32 lanes) and keeps its own
 // online softmax for up to GMAX query heads; the warps' states are merged
 // once, at the end of the split, so the tile loop waits at one barrier per
 // tile.
@@ -143,18 +145,30 @@ struct DecodeParams {
   int split, nsplit;
 };
 
+// The least power of two >= x.
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
 // How a (TR, D) tile is cut: V elements per 16-byte chunk, CPR chunks per
-// row, LPR lanes per row (at most a warp), CPL chunks per lane and row
-// (W = CPL * V values), RPW rows per warp step, STEPS steps per warp and
-// tile.  A tile has at least 32 rows (or one step of every warp) but holds
-// at most 16 KB of K, so the 4-slot K/V ring stays at 128 KB at D = 256
-// (f32: 16 rows, two chunks a lane).
+// row, LPR lanes per row (a power of two, at most a warp, so that the
+// score's xor-shuffle sum is a butterfly over one row's lanes), CPL chunks
+// per lane and row (W = CPL * V values), RPW rows per warp step, STEPS
+// steps per warp and tile.  Lane li's chunks are li + c LPR; where CPR is
+// not a power of two (D = 112 in f32: 28 chunks, a row on the whole warp)
+// FULL is false and the lanes whose chunk is past the row (28-31) hold
+// zeros and write nothing.  A tile has at least 32 rows (or one step of
+// every warp) but holds at most 16 KB of K, so the 4-slot K/V ring stays
+// at 128 KB at D = 256 (f32: 16 rows, two chunks a lane).
 template <typename T, int D>
 struct Tile {
   static constexpr int V = 16 / sizeof(T);
   static constexpr int CPR = D / V;
-  static constexpr int LPR = CPR < 32 ? CPR : 32;
-  static constexpr int CPL = CPR / LPR;
+  static constexpr int LPR = CPR < 32 ? pow2_ceil(CPR) : 32;
+  static constexpr int CPL = (CPR + LPR - 1) / LPR;
+  static constexpr bool FULL = CPR == CPL * LPR;
   static constexpr int W = CPL * V;
   static constexpr int RPW = 32 / LPR;
   static constexpr int CAP = 16384 / (D * (int)sizeof(T));
@@ -163,7 +177,7 @@ struct Tile {
   static constexpr int STEPS = TR / (RPW * kWarps);
   static constexpr int CHUNKS = TR * CPR;  // 16-byte chunks of one K tile
   static constexpr int ELEMS = TR * D;
-  static_assert(CPR % LPR == 0 && kSplitQuantum % TR == 0, "tile");
+  static_assert((FULL || CPL == 1) && kSplitQuantum % TR == 0, "tile");
   static_assert(TR % (RPW * kWarps) == 0, "tile steps");
   static_assert(CHUNKS % kThreads == 0, "tile chunks");
 };
@@ -224,15 +238,17 @@ __global__ void __launch_bounds__(kThreads)
   const int rg = lane / LPR, li = lane % LPR;
 
   // This lane's columns of a row: chunks li + c * LPR, c < CPL, V values
-  // each; value c * V + e of a lane's W is column col(c) + e.
+  // each; value c * V + e of a lane's W is column col(c) + e.  owns(c):
+  // the chunk lies in the row (always, unless the tile is not FULL).
   auto col = [&](int c) { return (li + c * LPR) * V; };
+  auto owns = [&](int c) { return S::FULL || li + c * LPR < CPR; };
   // q's loads go out with cur_lens', before anything waits on either.
   float q[GMAX][W];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-      if (g < gn) {
+      if (g < gn && owns(c)) {
         unpack<T>(load16(static_cast<const T*>(p.q) +
                          ((size_t)b * p.Hq + hk * p.G + g0 + g) * D + col(c)),
                   q[g] + c * V);
@@ -329,7 +345,9 @@ __global__ void __launch_bounds__(kThreads)
       float kf[W];
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
-        unpack<T>(*reinterpret_cast<const uint4*>(sk + row * D + col(c)),
+        unpack<T>(owns(c) ? *reinterpret_cast<const uint4*>(sk + row * D +
+                                                            col(c))
+                          : make_uint4(0u, 0u, 0u, 0u),
                   kf + c * V);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
@@ -373,7 +391,9 @@ __global__ void __launch_bounds__(kThreads)
       float vf[W];
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
-        unpack<T>(*reinterpret_cast<const uint4*>(sv + row * D + col(c)),
+        unpack<T>(owns(c) ? *reinterpret_cast<const uint4*>(sv + row * D +
+                                                            col(c))
+                          : make_uint4(0u, 0u, 0u, 0u),
                   vf + c * V);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
@@ -414,8 +434,9 @@ __global__ void __launch_bounds__(kThreads)
         float* dst = so + (warp * GMAX + g) * D;
 #pragma unroll
         for (int c = 0; c < CPL; ++c)
+          if (owns(c))
 #pragma unroll
-          for (int e = 0; e < V; ++e) dst[col(c) + e] = o[g][c * V + e];
+            for (int e = 0; e < V; ++e) dst[col(c) + e] = o[g][c * V + e];
         if (li == 0) {
           sml[(warp * GMAX + g) * 2] = m[g];
           sml[(warp * GMAX + g) * 2 + 1] = l[g];
@@ -491,9 +512,14 @@ size_t tc_smem_bytes(int split) {
 
 // Split pass, bf16, tensor cores (design at the top of this file): the
 // query heads g0 .. g0 + 8 NH - 1 of kv head blockIdx.x / gchunks (those
-// past the group are zero and never written).
+// past the group are zero and never written).  Its minBlocks launch bound
+// is 0 (none) but at D = 112, where ptxas left to itself settles on 96
+// registers and spills 16 B; told that 3 blocks share an SM (the ring's
+// shared memory allows 3), it takes 128 and spills nothing.  The bound of
+// 0 leaves the other head dims' code as it was, instruction for
+// instruction (cuobjdump -sass, on an H100's toolkit).
 template <int D, int NH, bool PAGED>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, D == 112 ? 3 : 0)
     decode_tc_kernel(const DecodeParams p) {
   using bf16 = __nv_bfloat16;
   using S = TcTile<D>;
@@ -900,6 +926,8 @@ int dispatch_decode(int dtype, DecodeParams p, cudaStream_t s) {
       return launch_d<32, PAGED>(dtype, wide, p, s);
     case 64:
       return launch_d<64, PAGED>(dtype, wide, p, s);
+    case 112:
+      return launch_d<112, PAGED>(dtype, wide, p, s);
     case 128:
       return launch_d<128, PAGED>(dtype, wide, p, s);
     case 256:

@@ -35,7 +35,7 @@ LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0,
             "wkv6": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def reset_launches():
@@ -167,9 +167,9 @@ def decode_blocks_per_sm(D: int) -> int:
     many as its K/V ring leaves room for (STAGES tiles of 16 KW keys of K
     and V, rows of D + 8 bf16: ``ref.decode_tc_tile``).  ``chip_smoke.py``
     holds this to the card's occupancy calculator (the C entry
-    decode_blocks_per_sm) at the zoo's head dims, 64, 128 and 256; at 16
-    and 32 the card's registers hold fewer (9 and 8 on an H100), and the
-    rule asks for more blocks than fit."""
+    decode_blocks_per_sm) at the zoo's head dims, 64, 112, 128 and 256;
+    at 16 and 32 the card's registers hold fewer (9 and 8 on an H100), and
+    the rule asks for more blocks than fit."""
     kw, stages = ref.decode_tc_tile(D)
     ring = stages * 2 * 16 * kw * (D + 8) * 2
     return min(MAX_BLOCKS_PER_SM, SM_SHARED // (ring + BLOCK_SHARED))

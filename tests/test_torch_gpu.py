@@ -896,6 +896,227 @@ def test_paged_kernel_d256(cuda, dtype):
     assert torch.equal(out, contiguous)
 
 
+# ---------------------------------------------------------------------------
+# Head dim 112 (Kimi K2: d_model 7168 over 64 heads)
+# ---------------------------------------------------------------------------
+
+D112_PREFILL = {
+    # id: (B, Sq, Skv, Hq, Hkv, window, softcap, offsets, lengths)
+    "kimi-prompt": (1, 512, 2048, 64, 8, 0, 0.0, [0], [512]),
+    "kimi-chunk-window-softcap": (1, 256, 1280, 64, 8, 512, 50.0, [896],
+                                  [1100]),
+    "ragged-batch": (2, 96, 320, 16, 2, 64, 50.0, [100, 0], [196, 60]),
+    "mqa": (2, 200, 512, 8, 1, 0, 0.0, [0, 300], [200, 500]),
+    # rows 20.. of the window-8 layer see no key: the mean of v over Skv
+    "row-without-visible-key": (1, 40, 96, 16, 2, 8, 50.0, [15], [20]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(D112_PREFILL))
+def test_prefill_kernel_d112(cuda, case, dtype):
+    """Both prefill paths at D = 112 (bf16: prefill_tc_kernel<112>, 14
+    output n-tiles; f32: prefill_f32_kernel<112>, 7 columns a thread) at
+    Kimi K2's heads (64 / 8), with offsets, a window and softcap, ragged
+    lengths, MQA and a row with no visible key: bf16 at 3e-2 and 2e-5 + 2
+    bf16 steps of the plain version and of the plain version with the
+    kernel's rounding, f32 at 2e-5; one launch a call; two calls
+    bit-equal."""
+    B, Sq, Skv, Hq, Hkv, window, cap, offs, lens = D112_PREFILL[case]
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + 112)
+    q = _randn(g, B, Sq, Hq, 112, dtype=dtype)
+    k = _randn(g, B, Skv, Hkv, 112, dtype=dtype)
+    v = _randn(g, B, Skv, Hkv, 112, dtype=dtype)
+    o = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kops.reset_launches()
+    out = kops.prefill_attention(q, k, v, o, n, window=window, softcap=cap)
+    assert kops.LAUNCHES["chunked_prefill_attention"] == 1
+    want = ref.chunked_prefill_attention_ref(q, k, v, o, n, window=window,
+                                             softcap=cap)
+    if dtype == torch.bfloat16:
+        for w in (want, ref.chunked_prefill_attention_split_p_ref(
+                q, k, v, o, n, window=window, softcap=cap)):
+            _close(out, w, 3e-2)
+            _within_bf16_steps(out, w)
+    else:
+        _close(out, want, 2e-5)
+    again = kops.prefill_attention(q, k, v, o, n, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+D112_DECODE = {
+    # id: (L, Hq, Hkv, window, softcap, cur_lens)
+    "kimi-heads": (2048, 64, 8, 0, 0.0, [0, 700, 1500, 2047]),
+    "window-across-splits-softcap": (1024, 16, 2, 300, 50.0,
+                                     [1023, 0, 500, 700]),
+    "group-of-16": (1024, 32, 2, 0, 0.0, [1023, 129, 128, 5]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(D112_DECODE))
+def test_decode_kernel_d112(cuda, case, dtype):
+    """The split-KV decode kernel at D = 112 (bf16: decode_tc_kernel<112>,
+    7 k-steps and 7 m-tiles, Q^T in registers, one or two n-tiles of heads;
+    f32: decode_split_kernel<112>, a row's 28 chunks on 28 lanes of a
+    warp): against the plain version and the plain split-and-merge
+    version, in bf16 also the kernel's arithmetic, and bit-equal to
+    itself."""
+    L, Hq, Hkv, window, cap, curs = D112_DECODE[case]
+    B = len(curs)
+    g = torch.Generator(device=cuda).manual_seed(L + Hq + 112)
+    q = _randn(g, B, Hq, 112, dtype=dtype)
+    k = _randn(g, B, L, Hkv, 112, dtype=dtype)
+    v = _randn(g, B, L, Hkv, 112, dtype=dtype)
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    kops.reset_launches()
+    out = kops.decode_attention_op(q, k, v, cur, window=window, softcap=cap)
+    assert kops.LAUNCHES["decode_attention"] == 1
+    split, nsplit = kops.decode_split(L, B, Hkv, 112)
+    assert nsplit > 1
+    wants = [ref.decode_attention_ref(q, k, v, cur, window=window,
+                                      softcap=cap),
+             ref.decode_attention_split_ref(q, k, v, cur, split,
+                                            window=window, softcap=cap)]
+    if dtype == torch.bfloat16:
+        wants.append(ref.decode_attention_split_p_ref(
+            q, k, v, cur, split, window=window, softcap=cap))
+    for want in wants:
+        if dtype == torch.bfloat16:
+            _close(out, want, 3e-2)
+            _within_bf16_steps(out, want)
+        else:
+            _close(out, want, 2e-5)
+    again = kops.decode_attention_op(q, k, v, cur, window=window,
+                                     softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_kernel_d112(cuda, dtype):
+    """Kimi K2's heads (64 / 8, D = 112) over interleaved 128-token pages:
+    the plain version, its split-and-merge form, and bit for bit the
+    contiguous decode kernel on the gathered KV; bit-equal to itself."""
+    g = torch.Generator(device=cuda).manual_seed(112)
+    cur = torch.tensor([0, 700, 1500, 2047], device=cuda)
+    tables = _interleaved_pages(cuda, (cur + 1).tolist(), 40)
+    q = _randn(g, 4, 64, 112, dtype=dtype)
+    pk = _randn(g, 40, 128, 8, 112, dtype=dtype)
+    pv = _randn(g, 40, 128, 8, 112, dtype=dtype)
+    out = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    split, _ = kops.decode_split(tables.shape[1] * 128, 4, 8, 112, 128)
+    for want in (ref.paged_decode_attention_ref(q, pk, pv, tables, cur),
+                 ref.paged_decode_attention_split_ref(q, pk, pv, tables, cur,
+                                                      split)):
+        if dtype == torch.bfloat16:
+            _close(out, want, 3e-2)
+            _within_bf16_steps(out, want)
+        else:
+            _close(out, want, 2e-5)
+    safe = tables.clamp(min=0).long()
+    contiguous = kops.decode_attention_op(
+        q, pk[safe].reshape(4, -1, 8, 112), pv[safe].reshape(4, -1, 8, 112),
+        cur)
+    again = kops.paged_decode_attention(q, pk, pv, tables, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out, contiguous)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_decode_partial_kernel_d112(cuda, dtype):
+    """The rank-slice entry at Kimi K2's heads (64 / 8, D = 112), a
+    2048-position cache in 4 slices with a window starting mid-slice: each
+    slice's (o, lse) within 2e-5 of the plain version (-inf where it has
+    it), bit-equal to itself; the slices merged against the one-pass plain
+    decode."""
+    L, n, window, curs = 2048, 4, 700, [2047, 1000, 512, 0]
+    B, per = len(curs), 2048 // 4
+    g = torch.Generator(device=cuda).manual_seed(1120)
+    q = _randn(g, B, 64, 112, dtype=dtype)
+    k = _randn(g, B, L, 8, 112, dtype=dtype)
+    v = _randn(g, B, L, 8, 112, dtype=dtype)
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    os_, lses = [], []
+    for i in range(n):
+        ks = k[:, i * per:(i + 1) * per].contiguous()
+        vs = v[:, i * per:(i + 1) * per].contiguous()
+        o, lse = kops.decode_attention_partial(q, ks, vs, cur, i * per,
+                                               window=window)
+        wo, wl = ref.decode_attention_partial_ref(q, ks, vs, cur, i * per,
+                                                  window=window)
+        _close(o, wo, 2e-5)
+        torch.testing.assert_close(torch.isneginf(lse), torch.isneginf(wl))
+        live = torch.isfinite(wl)
+        _close(lse[live], wl[live], 2e-5)
+        again = kops.decode_attention_partial(q, ks, vs, cur, i * per,
+                                              window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        os_.append(o)
+        lses.append(lse)
+    merged = ref.merge_decode_partials(torch.stack(os_), torch.stack(lses))
+    _close(merged, ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            cur, window=window), 2e-5)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_f32_other_head_dims(cuda, D):
+    """The f32 decode kernel at the head dims whose lanes a row did not
+    change when D = 112 was added (a power of two of chunks a row): against
+    the plain version and the split-and-merge version at 2e-5, groups of 4
+    and 8 (GMAX 4 and 8), a window and softcap."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    for Hq, Hkv in ((32, 8), (16, 2)):
+        q = _randn(g, 3, Hq, D)
+        k, v = _randn(g, 3, 1024, Hkv, D), _randn(g, 3, 1024, Hkv, D)
+        cur = torch.tensor([1023, 300, 0], dtype=torch.int32, device=cuda)
+        out = kops.decode_attention_op(q, k, v, cur, window=500, softcap=30.0)
+        split, _ = kops.decode_split(1024, 3, Hkv, D)
+        _close(out, ref.decode_attention_ref(q, k, v, cur, window=500,
+                                             softcap=30.0), 2e-5)
+        _close(out, ref.decode_attention_split_ref(
+            q, k, v, cur, split, window=500, softcap=30.0), 2e-5)
+
+
+def test_kimi_d112_train_gradients_through_the_kernel(cuda):
+    """Kimi K2's SMOKE model at its published head dim (d_model 448 over
+    4 / 2 heads of 112, f32): every leaf's loss gradient with the prefill
+    kernel in the forward (the plain version's VJP as backward) within
+    2e-4 of the leaf's largest |gradient| of the plain_kernels path's."""
+    from repro_torch import models as tm
+    from repro_torch import training as tt
+    cfg = get_config("kimi_k2_1t_a32b", smoke=True).replace(d_model=448)
+    assert cfg.head_dim_ == 112
+    model = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    noise = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(0.05 * torch.randn(p.shape, generator=noise,
+                                           device=cuda))
+    model.requires_grad_(True)
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 96))
+    labels = np.roll(toks, -1, 1)
+    params = list(model.parameters())
+    kops.reset_launches()
+    got = torch.autograd.grad(tt.lm_loss(cfg, model, toks, labels)[0], params)
+    assert kops.LAUNCHES["chunked_prefill_attention"] == cfg.num_layers
+    want = torch.autograd.grad(
+        tt.lm_loss(cfg, model, toks, labels, plain_kernels=True)[0], params)
+    for a, b in zip(got, want):
+        assert b.abs().max().item() > 0
+        assert (a - b).abs().max().item() <= 2e-4 * b.abs().max().item()
+
+
 @pytest.mark.parametrize("arch,over", [
     ("llama31_8b", {}), ("gemma2_9b", {}),
     ("gemma2_9b", {"head_dim": 256, "query_scale": 1.0 / 16.0})],

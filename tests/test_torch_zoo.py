@@ -27,7 +27,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import ops as tops
 
 ZOO = ["deepseek_v2_lite_16b", "kimi_k2_1t_a32b", "jamba_v0_1_52b",
-       "llama_3_2_vision_11b"]
+       "llama_3_2_vision_11b", "kimi-d112"]
+#: cases of ZOO that are a config with overrides: Kimi K2's SMOKE model at
+#: its published head dim, 112 (d_model 448 over its 4 / 2 heads)
+VARIANTS = {"kimi-d112": ("kimi_k2_1t_a32b", {"d_model": 448})}
 TOL = 2e-4
 LAYER_TOL = 2e-5
 NOISY = {"gate": 1.0, "conv_b": 0.1}   # leaf name -> noise scale
@@ -73,7 +76,8 @@ def images(cfg, B, seed=3):
 
 @pytest.fixture(scope="module", params=ZOO)
 def zoo(request):
-    return (request.param, *pair(request.param))
+    arch, over = VARIANTS.get(request.param, (request.param, {}))
+    return (arch, *pair(arch, **over))
 
 
 def test_prefill_then_decode_logits_match(zoo):
