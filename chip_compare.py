@@ -3,28 +3,32 @@
 checkout of the repo on one card, in turns, and check that the attention
 kernels give the same bits in both.
 
-    python3 chip_compare.py OTHER_ROOT [--out FILE]
+    python3 chip_compare.py OTHER_ROOT [--may-differ REGEX] [--out FILE]
 
 OTHER_ROOT is another checkout (an older commit unpacked with
 ``git archive``).  Each turn runs one checkout's phase 1 (build) and phase
 2 (parity and times) in a process of its own, so that each imports its own
 ``repro_torch``; the turns go other, this, this, other.  Before its
-phase 2, each turn times the prefill kernel on phase 2's prefill shapes
-(bf16, inputs from seed 1) and saves its outputs there, then runs each of
-the four attention wrappers (prefill, decode, the rank-slice decode entry,
-paged decode) at every head dim in HEAD_DIMS, in bf16 and f32, on
-OUTPUT_CASES' inputs (each case's own seed) and saves those outputs too
-(under build/compare/, with each turn's rows).  Every saved output of the
-first turn of each checkout must be bit-equal to the other's, and the two
-turns of this checkout to each other.  Prints each row's kernel ms in
-every turn beside the card's name and power limit, and with --out writes it
-all to FILE as JSON.  Exits 1 unless every output is bit-equal.  Needs one
+phase 2, each turn times the prefill kernel on PREFILL_SHAPES (phase 2's
+bf16 prefill rows, inputs from seed 1) and saves its outputs there, then
+runs each of the four attention wrappers (prefill, decode, the rank-slice
+decode entry, paged decode) at every head dim in HEAD_DIMS, in bf16 and
+f32, on OUTPUT_CASES' inputs (each case's own seed), and WKV6 on
+WKV6_CASES', and saves those outputs too (under build/compare/, with each
+turn's rows).  Every saved output of the first turn of each checkout must
+be bit-equal to the other's, and the two turns of each checkout to each
+other; an output whose label matches --may-differ (one a change meant to
+alter) need only be bit-equal run to run, and its largest difference from
+the other checkout is printed.  Prints each row's kernel ms in every turn
+beside the card's name and power limit, and with --out writes it all to
+FILE as JSON.  Exits 1 unless every output meets its rule.  Needs one
 card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,7 +44,13 @@ PREFILL_SHAPES = [
      0, 0.0),
     ("Llama heads, burst prompt", 1, 2048, 2048, 32, 8, 128, 0, 1500, 0,
      0.0),
+    ("Llama heads, planned chunk into 4096", 1, 2816, 4096, 32, 8, 128, 0,
+     2816, 0, 0.0),
     ("Qwen heads, prompt", 1, 512, 2048, 40, 8, 128, 0, 512, 0, 0.0),
+    ("Qwen2-0.5B heads, prompt", 1, 512, 2048, 14, 2, 64, 0, 512, 0, 0.0),
+    ("Qwen2-0.5B heads, burst prompt", 1, 2048, 2048, 14, 2, 64, 0, 1500, 0,
+     0.0),
+    ("Kimi K2 heads, prompt", 1, 512, 2048, 64, 8, 112, 0, 512, 0, 0.0),
     ("Gemma-2-9B heads, prompt, softcap 50", 1, 512, 2048, 16, 8, 256, 0,
      512, 0, 50.0),
     ("Gemma-2-9B heads past the window", 1, 5120, 5120, 16, 8, 256, 0, 4600,
@@ -56,7 +66,7 @@ PREFILL_SHAPES = [
 #: the head dims both checkouts take (the kernels' outputs are compared at
 #: each) and the inputs of each wrapper there: (label, wrapper, shape
 #: arguments); every case runs in bf16 and f32
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 OUTPUT_CASES = [
     ("prefill G=4", "prefill", dict(B=1, Sq=200, Skv=512, Hq=8, Hkv=2,
                                     offs=[0], lens=[200], window=0,
@@ -75,6 +85,15 @@ OUTPUT_CASES = [
           window=300, softcap=0.0)),
     ("paged, interleaved 128-token pages", "paged",
      dict(B=4, Hq=16, Hkv=2, cur=[0, 700, 1500, 2047])),
+]
+
+
+#: WKV6's inputs (chip_smoke._wkv_inputs): (label, B, S, H, K, RWKV-6's
+#: decays, zero initial state), f32
+WKV6_CASES = [
+    ("wkv6 B=2 S=300 H=4 K=64, carried state", 2, 300, 4, 64, False, False),
+    ("wkv6 B=1 S=1024 H=40 K=64, RWKV-6 decays, zero state", 1, 1024, 40, 64,
+     True, True),
 ]
 
 
@@ -128,6 +147,10 @@ def kernel_outputs(seed0=7):
                                                       cs.i32(a["cur"]))
                 tag = "bf16" if dt == torch.bfloat16 else "f32"
                 outs[f"{label}, D={D} {tag}"] = got.cpu()
+    for i, (label, B, S, H, K, decay, zero) in enumerate(WKV6_CASES):
+        g = torch.Generator(device="cuda").manual_seed(seed0 + 5000 + i)
+        y, sT = kops.wkv6_op(*cs._wkv_inputs(g, B, S, H, K, decay, zero))
+        outs[label] = torch.cat([y.reshape(-1), sT.reshape(-1)]).cpu()
     return outs
 
 
@@ -157,7 +180,7 @@ def worker(root: Path, out: Path) -> int:
         q, k, v, o, ln = sets[0]
         del sets
         got = kops.prefill_attention(q, k, v, o, ln, window=win, softcap=cap)
-        outs[f"timed prefill {label}"] = got.cpu()
+        outs[f"timed prefill {label}, D={D} bf16"] = got.cpu()
         del q, k, v, got
     outs.update(kernel_outputs())
     torch.save(outs, out.with_suffix(".pt"))
@@ -173,6 +196,8 @@ def worker(root: Path, out: Path) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path)
+    ap.add_argument("--may-differ", default=None, metavar="REGEX",
+                    help="labels of outputs held only run to run")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -198,16 +223,26 @@ def main() -> int:
         runs.append((name, out))
     saved = [torch.load(o.with_suffix(".pt")) for _, o in runs]
     data = [(n, json.loads(o.read_text())) for n, o in runs]
-    # turn 0 (other) against turn 1 (this), and this checkout's two turns
-    verdict = {}
+    # turn 0 (other) against turn 1 (this), and each checkout's two turns
+    verdict, differ = {}, {}
     for label in saved[0]:
-        verdict[label] = bool(torch.equal(saved[0][label], saved[1][label])
-                              and torch.equal(saved[1][label],
-                                              saved[2][label]))
-        print(f"[compare] {label}: bit-equal to the other checkout and "
-              f"run to run: {verdict[label]}")
-    print(f"[compare] outputs bit-equal: {sum(verdict.values())} of "
-          f"{len(verdict)}")
+        runs = bool(torch.equal(saved[1][label], saved[2][label])
+                    and torch.equal(saved[0][label], saved[3][label]))
+        same = bool(torch.equal(saved[0][label], saved[1][label]))
+        if a.may_differ and re.search(a.may_differ, label):
+            differ[label] = (saved[0][label].float()
+                             - saved[1][label].float()).abs().max().item()
+            verdict[label] = runs
+            print(f"[compare] {label}: may differ; bit-equal run to run: "
+                  f"{runs}; bit-equal to the other checkout: {same}, largest "
+                  f"|difference| {differ[label]:.3g}")
+        else:
+            verdict[label] = runs and same
+            print(f"[compare] {label}: bit-equal to the other checkout and "
+                  f"run to run: {verdict[label]}")
+    print(f"[compare] outputs meeting their rule: {sum(verdict.values())} of "
+          f"{len(verdict)} ({len(differ)} allowed to differ from the other "
+          f"checkout)")
     for i, (label, *_) in enumerate(PREFILL_SHAPES):
         print(f"[compare] prefill {label}: kernel ms (graph) " + ", ".join(
             f"{t}_{n} {d['prefill_ms'][i]:.4f}"
@@ -230,7 +265,7 @@ def main() -> int:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps({
             "card": data[0][1]["card"], "turns": turns,
-            "bit_equal": verdict,
+            "bit_equal": verdict, "may_differ": differ,
             "prefill_ms": {p[0]: [d["prefill_ms"][i] for _, d in data]
                            for i, p in enumerate(PREFILL_SHAPES)},
             "rows": table}, indent=1))

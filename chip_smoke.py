@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing is skipped):
   1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
                (one nvcc each, in parallel) and print every instantiation's
                ptxas registers and spills (no decode and no bf16 prefill
-               instantiation may spill; the D = 256 bf16 prefill kernel's
-               registers on a line of their own; the ten D = 112
+               instantiation may spill; the wgmma bf16 prefill kernel's
+               (D = 64, 128, 256) registers on a line of their own; the
+               ten D = 112
                instantiations on a line of their own, none spilling); the
                bf16 decode kernel's blocks an SM by head dim
                from the card's occupancy calculator, held to the split
@@ -42,7 +43,11 @@ Phases (any failure exits non-zero; nothing is skipped):
                function, that call (a yardstick only): kernels and that call
                by CUDA-graph replay (eager figure and host enqueue beside),
                the plain versions eagerly; also the prefill kernel at the
-               convertible chunk and a burst prompt beside SDPA, WKV6 at a
+               convertible chunk, and as rows of their own the burst prompt
+               (1p) and phase 11's planned chunk into its cache (1c), each
+               beside SDPA (bf16 prefill at D = 64 and 128 is the wgmma +
+               TMA kernel: at the main-path cases also against its own
+               arithmetic and bit-equal to itself), WKV6 at a
                256-token chunk from a carried state, device time by kernel
                of the split-KV and the three WKV6 passes; then the three
                attention kernels at head dim 256 (Gemma-2-9B's heads with
@@ -58,6 +63,14 @@ Phases (any failure exits non-zero; nothing is skipped):
                then the two attention kernels at Qwen-2.5-32B's heads (40
                over 8, G = 5) at the main path's shapes, bf16 and f32, and
                their times beside the bound, plain version and SDPA; then
+               the bf16 prefill (wgmma + TMA) at D = 64 and 128 on
+               Qwen2-0.5B's, MusicGen-large's, Qwen's, Llama's and MQA
+               heads with windows, softcaps and ragged batches, bf16 and
+               f32, in bf16 also against its own arithmetic, one launch a
+               call, bit-equal to itself and with NaN in the keys no row
+               sees bit-equal to its output on clean keys, and row 1h
+               (Qwen2-0.5B's 14 / 2 heads at D = 64) timed beside the
+               bound, plain version and SDPA; then
                the three attention kernels at Kimi K2's head dim 112 (64 /
                8 heads, G = 8) in bf16 and f32: prefill at a prompt, a
                chunk at an offset with window and softcap and a ragged
@@ -154,8 +167,8 @@ Phases (any failure exits non-zero; nothing is skipped):
                request completes, a mixed step runs a chunk of exactly
                that size, and one profiled mixed step is set beside Eq.
                5's prediction and the 100 ms TPOT SLO; its attention
-               launches are printed on its own line, not in the kernels
-               line
+               launches are printed on its own line, and its prefill
+               launches are the kernels line's planned-chunk row's (1c)
  12. train   — training, gradients through the prefill and WKV6 kernels:
                (a) the two differentiable wrappers (kernel forward, the
                plain version's VJP as backward) against autograd of the
@@ -551,7 +564,8 @@ def phase_build():
                      if "112" in k.split("<")[1].rstrip(">").split(",")})
         if "decode" in name:
             decode.update({f"{name}: {k}": v for k, v in rep.items()})
-        # the bf16 prefill kernels: mma.sync at D <= 128, wgmma at 256
+        # the bf16 prefill kernels: mma.sync at D = 16, 32, 112, wgmma at
+        # 64, 128, 256
         prefill.update({k: v for k, v in rep.items()
                         if k.startswith(("prefill_tc_kernel",
                                          "prefill_wg_kernel"))})
@@ -565,13 +579,13 @@ def phase_build():
     log(f"[build] decode instantiations: {len(decode)}, spilling: {spills}")
     check(decode and not spills, "a decode instantiation spills")
     wg = {k: v for k, v in prefill.items() if k.startswith("prefill_wg")}
-    log(f"[build] the bf16 prefill kernel at D = 256, without and with a "
-        f"softcap: ptxas {wg} (registers at entry; setmaxnreg gives its "
-        f"consumer warpgroups 240, its producer 24)")
+    log(f"[build] the bf16 prefill kernel at D = 64, 128 and 256, without "
+        f"and with a softcap: ptxas {wg} (registers at entry; setmaxnreg "
+        f"gives its consumer warpgroups 240, its producer 24)")
     spills = {k: v for k, v in prefill.items() if "spills 0/0 B" not in v}
     log(f"[build] bf16 prefill instantiations: {len(prefill)}, spilling: "
         f"{spills}")
-    check(len(wg) == 2 and len(prefill) == 7 and not spills,
+    check(len(wg) == 6 and len(prefill) == 9 and not spills,
           "a bf16 prefill instantiation spills or is missing")
     # the bf16 decode kernel's blocks an SM, as the split rule counts them
     # and as the card's occupancy calculator gives them
@@ -669,7 +683,7 @@ def phase_parity():
         f"last chunk Sq={M - C} off={C} Skv={M} len=3540": (M - C, C, 3540,
                                                             M)})
 
-    main_inputs = {}
+    main_inputs, case_errs = {}, {}
     for dt in (bf, f32):
         for label, (Sq, off, n, Skv) in cases.items():
             q = _rand(g, (1, Sq, 32, 128), dt)
@@ -677,11 +691,25 @@ def phase_parity():
             v = _rand(g, (1, Skv, 8, 128), dt)
             o = torch.tensor([off], device=dev)
             ln = torch.tensor([n], device=dev)
+            out = kops.prefill_attention(q, k, v, o, ln)
+            want = ref.chunked_prefill_attention_ref(q, k, v, o, ln)
             ok &= judge_attention(
-                errs, "chunked_prefill_attention", label, dt,
-                kops.prefill_attention(q, k, v, o, ln),
-                ref.chunked_prefill_attention_ref(q, k, v, o, ln))
+                errs, "chunked_prefill_attention", label, dt, out, want)
+            if dt == bf:
+                # D = 128: prefill_wg_kernel, against its own arithmetic too
+                case_errs[label] = max_err(out, want)
+                ok &= judge_attention(
+                    errs, "chunked_prefill_attention", f"{label}, vs the "
+                    "kernel's arithmetic (split_p_ref)", dt, out,
+                    ref.chunked_prefill_attention_split_p_ref(q, k, v, o,
+                                                              ln))
+                same = bool(torch.equal(out, kops.prefill_attention(
+                    q, k, v, o, ln)))
+                ok &= same
+                log(f"[parity] chunked_prefill_attention bf16 {label}: two "
+                    f"calls bit-equal: {same}")
             main_inputs[label] = (Sq, off, n)
+            del out, want
         for L, curs in ((2048, DECODE_CUR), (M, CONVERTIBLE_CUR)):
             q = _rand(g, (4, 32, 128), dt)
             k, v = _rand(g, (4, L, 8, 128), dt), _rand(g, (4, L, 8, 128), dt)
@@ -793,33 +821,45 @@ def phase_parity():
             q, k, v, attn_mask=m, enable_gqa=True), sdpa_sets,
         bound=prefill_bound(sets[0][0], sets[0][1], [off], [n], 0),
         shape="B=1 Sq=512 Skv=2048 Hq=32 Hkv=8 D=128 bf16, offset 0, len 512")
-    # the convertible chunk and a burst prompt, for the record
-    for label in ("convertible chunk Sq=256 off=768 len=1024",
-                  "burst prompt Sq=2048 Skv=2048 len=1500"):
-        Sq2, off2, n2 = main_inputs[label]
+
+    def llama_row(label, Skv):
+        """Row of the prefill kernel at Llama heads on main_inputs[label]
+        into a cache of Skv rows, beside SDPA (the same function)."""
+        Sq, off, n = main_inputs[label]
         xsets = []
-        for _ in range(n_copies((Sq2 * 32 + 2 * 2048 * 8) * 128 * 2)):
-            q = _rand(g, (1, Sq2, 32, 128), bf)
-            k = _rand(g, (1, 2048, 8, 128), bf)
-            xsets.append((q, k, _rand(g, (1, 2048, 8, 128), bf),
-                          i32([off2]), i32([n2])))
-        xmask = (torch.arange(2048, device=dev)[None, :]
-                 <= torch.arange(Sq2, device=dev)[:, None] + off2) \
-            & (torch.arange(2048, device=dev)[None, :] < n2)
-        r = timed_row(
+        for _ in range(n_copies((Sq * 32 + 2 * Skv * 8) * 128 * 2)):
+            q = _rand(g, (1, Sq, 32, 128), bf)
+            k = _rand(g, (1, Skv, 8, 128), bf)
+            xsets.append((q, k, _rand(g, (1, Skv, 8, 128), bf),
+                          i32([off]), i32([n])))
+        ar = torch.arange(Skv, device=dev)
+        xmask = (ar[None, :] <= torch.arange(Sq, device=dev)[:, None] + off) \
+            & (ar[None, :] < n)
+        return timed_row(
             kops.prefill_attention, ref.chunked_prefill_attention_ref, xsets,
             lambda q, k, v, m: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True),
             [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
               xmask[None, None]) for q, k, v, _, _ in xsets],
-            bound=prefill_bound(xsets[0][0], xsets[0][1], [off2], [n2], 0))
-        log(f"[time] prefill kernel, {label}: {r['ms']:.4f} ms (graph; eager "
-            f"{r['eager_ms']:.4f} ms, host {r['host_us']:.1f} us/call); "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
-            f"{r['bound'][0] / r['ms']:.3f} of it; plain {r['plain_ms']:.4f} "
-            f"ms (eager); SDPA {r['library_ms']:.4f} ms (eager "
-            f"{r['library_eager_ms']:.4f})")
-        del xsets
+            bound=prefill_bound(xsets[0][0], xsets[0][1], [off], [n], 0),
+            shape=f"B=1 Sq={Sq} Skv={Skv} Hq=32 Hkv=8 D=128 bf16, offset "
+                  f"{off}, len {n}")
+
+    # the convertible chunk, for the record; the burst prompt (row 1p) and
+    # phase 11's planned chunk into its cache (row 1c), rows of their own
+    r = llama_row("convertible chunk Sq=256 off=768 len=1024", 2048)
+    log(f"[time] prefill kernel, convertible chunk Sq=256 off=768 len=1024: "
+        f"{r['ms']:.4f} ms (graph; eager {r['eager_ms']:.4f} ms, host "
+        f"{r['host_us']:.1f} us/call); bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of it; plain "
+        f"{r['plain_ms']:.4f} ms (eager); SDPA {r['library_ms']:.4f} ms "
+        f"(eager {r['library_eager_ms']:.4f})")
+    burst = "burst prompt Sq=2048 Skv=2048 len=1500"
+    planned = f"planned chunk Sq={C} Skv={M} len={C}"
+    rows["chunked_prefill_attention_burst"] = llama_row(burst, 2048)
+    rows["chunked_prefill_attention_planned_chunk"] = llama_row(planned, M)
+    errs["chunked_prefill_attention_burst"] = case_errs[burst]
+    errs["chunked_prefill_attention_planned_chunk"] = case_errs[planned]
 
     curs = i32(DECODE_CUR)
     dsets = []
@@ -851,6 +891,9 @@ def phase_parity():
     for name in rq:
         errs[f"{name}_qwen"] = eq[name]
         rows[f"{name}_qwen"] = rq[name]
+    ew, rw = parity_wg_small_dims(g)
+    errs.update(ew)
+    rows.update(rw)
     ek, rk = parity_head_dim_112(g)
     for name in rk:
         errs[f"{name}_kimi"] = ek[name]
@@ -1229,17 +1272,18 @@ def parity_head_dim_256(g):
     return errs, rows
 
 
-def prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, off, n, win, cap):
-    """The prefill kernel at D = 256 with NaN in K and V at every key no
+def prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, off, n, win, cap, D=256):
+    """The prefill kernel at head dim D with NaN in K and V at every key no
     row can see (behind every row's window, at and past lengths): the
     output bit-equal to the clean inputs', finite, within the bounds of the
     plain version (and in bf16 of the kernel's arithmetic) on the clean
-    inputs, and two calls bit-equal.  bf16 loads those rows by TMA with
-    the live ones; they must weigh exactly 0.  Logs; returns ok."""
+    inputs, and two calls bit-equal.  bf16 at D = 64, 128 and 256 loads
+    those rows by TMA with the live ones, in the first and the last tile a
+    block visits; they must weigh exactly 0.  Logs; returns ok."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    q = _rand(g, (1, Sq, Hq, 256), dt)
-    k, v = _rand(g, (1, Skv, Hkv, 256), dt), _rand(g, (1, Skv, Hkv, 256), dt)
+    q = _rand(g, (1, Sq, Hq, D), dt)
+    k, v = _rand(g, (1, Skv, Hkv, D), dt), _rand(g, (1, Skv, Hkv, D), dt)
     o, ln, args = i32([off]), i32([n]), dict(window=win, softcap=cap)
     clean = kops.prefill_attention(q, k, v, o, ln, **args)
     wants = {"the plain version": ref.chunked_prefill_attention_ref(
@@ -1249,7 +1293,8 @@ def prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, off, n, win, cap):
             ref.chunked_prefill_attention_split_p_ref(q, k, v, o, ln, **args)
     for t in (k, v):
         t[0, n:] = float("nan")
-        t[0, :max(off - win + 1, 0)] = float("nan")
+        if win:
+            t[0, :max(off - win + 1, 0)] = float("nan")
     dirty = kops.prefill_attention(q, k, v, o, ln, **args)
     again = kops.prefill_attention(q, k, v, o, ln, **args)
     torch.cuda.synchronize()
@@ -1258,13 +1303,13 @@ def prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, off, n, win, cap):
     errs = {"chunked_prefill_attention": 0.0}
     for what, want in wants.items():
         good &= judge_attention(errs, "chunked_prefill_attention",
-                                f"D=256 NaN in the dead keys, vs {what} on "
+                                f"D={D} NaN in the dead keys, vs {what} on "
                                 "the clean inputs", dt, dirty, want)
     tag = "bf16" if dt == torch.bfloat16 else "f32"
-    log(f"[parity] chunked_prefill_attention {tag} D=256 NaN in K/V behind "
-        f"the window and past lengths (Sq={Sq} off={off} len={n} "
-        f"Skv={Skv}): finite, bit-equal to the clean output and to itself: "
-        f"{'ok' if good else 'FAIL'}")
+    log(f"[parity] chunked_prefill_attention {tag} D={D} NaN in K/V behind "
+        f"the window and past lengths (heads {Hq}/{Hkv}, Sq={Sq} off={off} "
+        f"len={n} Skv={Skv}, window {win}): finite, bit-equal to the clean "
+        f"output and to itself: {'ok' if good else 'FAIL'}")
     return good
 
 
@@ -1353,6 +1398,102 @@ def parity_qwen_heads(g):
         shape="B=4 L=2048 Hq=40 Hkv=8 D=128 bf16, cur_lens "
               "0/700/1500/2047 (Qwen-2.5-32B heads)")
     return errs, rows
+
+
+#: bf16 prefill on prefill_wg_kernel at D = 64 and 128 beyond the Llama and
+#: Qwen rows: label -> (Hq, Hkv, D, B, Sq, Skv, offsets, lengths, window,
+#: softcap); the B = 1 cases again with NaN in the keys no row sees
+WG_PREFILL = {
+    "Qwen2-0.5B heads 14/2 D=64, prompt Sq=512 Skv=2048 len=512":
+        (14, 2, 64, 1, 512, 2048, [0], [512], 0, 0.0),
+    "Qwen2-0.5B heads 14/2 D=64, chunk Sq=256 off=1100 Skv=2048 len=1300, "
+    "window 700, softcap 50": (14, 2, 64, 1, 256, 2048, [1100], [1300], 700,
+                               50.0),
+    "MusicGen-large heads 32/32 D=64, ragged batch B=2 Sq=150 off=[500, 37] "
+    "len=[650, 187], window 300, softcap 50":
+        (32, 32, 64, 2, 150, 700, [500, 37], [650, 187], 300, 50.0),
+    "Qwen heads 40/8 D=128, chunk Sq=256 off=1536 Skv=2048 len=1700, "
+    "window 1024": (40, 8, 128, 1, 256, 2048, [1536], [1700], 1024, 0.0),
+    f"Llama heads 32/8 D=128, last chunk Sq={CONVERTIBLE_MAX_LEN - 2816} "
+    f"off=2816 Skv={CONVERTIBLE_MAX_LEN} len=3540":
+        (32, 8, 128, 1, CONVERTIBLE_MAX_LEN - 2816, CONVERTIBLE_MAX_LEN,
+         [2816], [3540], 0, 0.0),
+    "MQA heads 6/1 D=128, ragged batch B=2 Sq=200 off=[0, 300] Skv=512 "
+    "len=[200, 500]": (6, 1, 128, 2, 200, 512, [0, 300], [200, 500], 0, 0.0),
+}
+
+
+def parity_wg_small_dims(g):
+    """The bf16 prefill at D = 64 and 128 (prefill_wg_kernel: wgmma, TMA, a
+    warp-specialised producer) and the f32 path at the same shapes, on
+    WG_PREFILL's cases: against the plain version in bf16 (3e-2 and 2e-5 +
+    2 bf16 steps, and against the kernel's own arithmetic,
+    chunked_prefill_attention_split_p_ref) and f32 (2e-5), two calls
+    bit-equal, one launch a call; the B = 1 cases with NaN in every key
+    no row sees, bit-equal to the clean output.  Then row 1h: Qwen2-0.5B's
+    heads (14 / 2, D = 64) at B=1 Sq=512 Skv=2048 len 512 beside its bound,
+    plain version and SDPA (the same function).  Returns (bf16 errors,
+    rows) keyed by the kernels line's names."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"chunked_prefill_attention": 0.0}
+    ok, row_err = True, 0.0
+    for dt in (bf, f32):
+        tag = "bf16" if dt == bf else "f32"
+        for label, (Hq, Hkv, D, B, Sq, Skv, offs, lens, win, cap) in \
+                WG_PREFILL.items():
+            q = _rand(g, (B, Sq, Hq, D), dt)
+            k = _rand(g, (B, Skv, Hkv, D), dt)
+            v = _rand(g, (B, Skv, Hkv, D), dt)
+            o, ln, args = i32(offs), i32(lens), dict(window=win, softcap=cap)
+            n0 = kops.LAUNCHES["chunked_prefill_attention"]
+            out = kops.prefill_attention(q, k, v, o, ln, **args)
+            one = kops.LAUNCHES["chunked_prefill_attention"] == n0 + 1
+            want = ref.chunked_prefill_attention_ref(q, k, v, o, ln, **args)
+            ok &= one and judge_attention(
+                errs, "chunked_prefill_attention", label, dt, out, want)
+            if dt == bf:
+                if label.startswith("Qwen2-0.5B heads 14/2 D=64, prompt"):
+                    row_err = max_err(out, want)
+                ok &= judge_attention(
+                    errs, "chunked_prefill_attention", f"{label}, vs the "
+                    "kernel's arithmetic (split_p_ref)", dt, out,
+                    ref.chunked_prefill_attention_split_p_ref(q, k, v, o, ln,
+                                                              **args))
+            same = bool(torch.equal(out, kops.prefill_attention(q, k, v, o, ln,
+                                                                **args)))
+            ok &= same
+            log(f"[parity] chunked_prefill_attention {tag} {label}: one "
+                f"launch a call: {one}; two calls bit-equal: {same}")
+            del q, k, v, out, want
+            if B == 1:
+                ok &= prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, offs[0],
+                                        lens[0], win, cap, D=D)
+    check(ok, "prefill parity at D = 64 and 128 failed")
+
+    Hq, Hkv, D = 14, 2, 64
+    sets = []
+    for _ in range(n_copies((512 * Hq + 2 * 2048 * Hkv) * D * 2)):
+        q = _rand(g, (1, 512, Hq, D), bf)
+        k, v = _rand(g, (1, 2048, Hkv, D), bf), _rand(g, (1, 2048, Hkv, D), bf)
+        sets.append((q, k, v, i32([0]), i32([512])))
+    ar = torch.arange(2048, device="cuda")
+    mask = (ar[None, :] <= torch.arange(512, device="cuda")[:, None]) \
+        & (ar[None, :] < 512)
+    row = timed_row(
+        kops.prefill_attention, ref.chunked_prefill_attention_ref, sets,
+        lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True),
+        [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+          mask[None, None]) for q, k, v, _, _ in sets],
+        bound=prefill_bound(sets[0][0], sets[0][1], [0], [512], 0),
+        shape="B=1 Sq=512 Skv=2048 Hq=14 Hkv=2 D=64 bf16, offset 0, len 512 "
+              "(Qwen2-0.5B heads)")
+    return {"chunked_prefill_attention_d64": row_err}, \
+        {"chunked_prefill_attention_d64": row}
 
 
 #: phase 2's cases at head dim 112 (Kimi K2: 64 / 8 heads, G = 8).
@@ -1870,6 +2011,12 @@ def parity_wkv6_rank(g):
               "heads of RWKV-6 3B over 4)")
 
 
+#: the prefill kernel's launches by (dtype, B, Sq, Skv, Hq, Hkv, D)
+#: (kops.PREFILL_SHAPES) in each serving run, by the run's tag; read with
+#: the run's other counters
+SERVED = {}
+
+
 def drive_pd(cfg, model, tag, max_len=2048, long_pd=(), long_direct=(),
              max_instances=8):
     """The main path's traffic, as a user sends it: PDCluster (1 prefiller,
@@ -1945,6 +2092,7 @@ def drive_pd(cfg, model, tag, max_len=2048, long_pd=(), long_direct=(),
     eng.run_until_drained()
     torch.cuda.synchronize()
     launches = dict(kops.LAUNCHES)
+    SERVED[tag] = dict(kops.PREFILL_SHAPES)
     # ... to here
     mixed, dec, mixed_s, dec_s = counts + steps([eng])
     run = dict(
@@ -2337,10 +2485,12 @@ def phase_exact():
     with an image per request and the cross-attention gates at 1."""
     from repro_torch.configs import get_config
     from repro_torch.core import CHIPS, InstanceSpec, TokenScalePolicy, profile
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, PDCluster, Request
 
     short = [7, 12, 5, 20, 9]
+    kops.reset_launches()
     for arch, over, lens, max_len, what in (
             ("llama31_8b", {}, short, 96, ""),
             ("rwkv6_3b", {}, short, 96, ""),
@@ -2404,6 +2554,7 @@ def phase_exact():
                 f"{eng.mixed_steps}")
             check(all(same) and eng.mixed_steps > 0,
                   f"exact tokens, convertible ({arch}{what})")
+    SERVED["exact"] = dict(kops.PREFILL_SHAPES)
 
 
 def full_model(arch, tag, num_layers=None):
@@ -2624,6 +2775,7 @@ def phase_vision():
     torch.cuda.synchronize()
     launches = {n: kops.LAUNCHES[n]
                 for n in ("chunked_prefill_attention", "decode_attention")}
+    SERVED["vision"] = dict(kops.PREFILL_SHAPES)
     # ... to here
     wall = time.perf_counter() - t0
     done = sum(len(r.output) == 32 for r in reqs)
@@ -2908,6 +3060,7 @@ def control_convertible(card):
     torch.cuda.synchronize()
     launches = {n: kops.LAUNCHES[n]
                 for n in ("chunked_prefill_attention", "decode_attention")}
+    SERVED["control"] = dict(kops.PREFILL_SHAPES)
     # ... to here
     wall = time.perf_counter() - t0
     reqs = decoding + bursts
@@ -4621,6 +4774,28 @@ def main() -> int:
             src["chunked_prefill_attention_d256"]
         launches[f"chunked_prefill_attention_{shape}_d256"] = \
             launches["chunked_prefill_attention_d256"]
+    # bf16 prefill at D = 64 and 128 is prefill_wg_kernel too: beside Llama's
+    # prompt row (phase 3's launches, every shape) and Qwen's (phase 8's),
+    # three rows counted at their own shapes: the burst prompt in phase 3
+    # (its prefiller pads a prompt of 1025-2048 tokens to 2048 rows), a
+    # chunk of the planned size into phase 11's 4096-row cache (whatever
+    # the chunk's length), and bf16 at D = 64 (Qwen2-0.5B's heads) in any
+    # serving run
+    for name in ("chunked_prefill_attention", "chunked_prefill_attention_qwen",
+                 "chunked_prefill_attention_burst",
+                 "chunked_prefill_attention_planned_chunk",
+                 "chunked_prefill_attention_d64"):
+        src[name] = src["chunked_prefill_attention_d256"]
+    log(f"[launches] the prefill kernel's launches by (dtype, B, Sq, Skv, "
+        f"Hq, Hkv, D) in each serving run: {SERVED}")
+    launches["chunked_prefill_attention_burst"] = SERVED["serve"].get(
+        ("bfloat16", 1, 2048, 2048, 32, 8, 128), 0)
+    launches["chunked_prefill_attention_planned_chunk"] = SERVED[
+        "control"].get(("bfloat16", 1, convertible_chunk(),
+                        CONVERTIBLE_MAX_LEN, 32, 8, 128), 0)
+    launches["chunked_prefill_attention_d64"] = sum(
+        n for shapes in SERVED.values() for key, n in shapes.items()
+        if key[0] == "bfloat16" and key[-1] == 64)
     kernels = [dict(name=n, route="cuda", source=src[n][0],
                     replaces=src[n][1], launches=launches[n],
                     max_abs_err=errs[n], ms=rows[n]["ms"],

@@ -22,9 +22,12 @@
 // of bf16 tensor-core work, but 0.032 ms on CUDA cores at 67 TFLOP/s f32.
 // So the bf16 path has to run both products on tensor cores.
 //
-// bf16 path at D <= 128 (prefill_tc_kernel), FlashAttention-2 style with
-// mma.sync (at D = 256 bf16 runs prefill_wg_kernel: wgmma, TMA and a
-// warp-specialised producer, prefill_wg.cuh):
+// bf16 path at D = 16, 32 and 112 (prefill_tc_kernel), FlashAttention-2
+// style with mma.sync (at D = 64, 128 and 256 bf16 runs prefill_wg_kernel:
+// wgmma, TMA and a warp-specialised producer, prefill_wg.cuh; at the
+// main-path shape below it takes 0.019 ms where prefill_tc_kernel took
+// 0.031 on an H100 80GB HBM3 at 700 W, chip_prefill_probe.py and
+// chip_compare.py):
 //  * A block owns BM = 64 packed query rows of one kv head: row p is token
 //    p / G, query head p % G of the group, so the G heads that read one kv
 //    head share every K/V tile a block loads (read once per block, not G
@@ -519,10 +522,12 @@ int launch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// bf16 runs prefill_tc_kernel up to D = 128 and prefill_wg_kernel at 256.
-// D = 112 (Kimi K2) is prefill_tc_kernel's 14 output n-tiles and 7 k-steps:
-// its padded row of 120 bf16 (240 B) keeps every ldmatrix row 16-byte
-// aligned, and 8 rows at that stride fall in 8 disjoint 4-bank groups.
+// bf16 runs prefill_wg_kernel at D = 64, 128 and 256 and prefill_tc_kernel
+// at 16, 32 and 112.  16 and 32 are test widths; D = 112 (Kimi K2) does not
+// divide into prefill_wg_kernel's 64-column swizzle blocks.  It is
+// prefill_tc_kernel's 14 output n-tiles and 7 k-steps: its padded row of
+// 120 bf16 (240 B) keeps every ldmatrix row 16-byte aligned, and 8 rows at
+// that stride fall in 8 disjoint 4-bank groups.
 template <bool TC>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const void* offset, const void* lengths, void* out, int B,
@@ -537,9 +542,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
   switch (D) {
     REPRO_PREFILL_CASE(16, launch_tc)
     REPRO_PREFILL_CASE(32, launch_tc)
-    REPRO_PREFILL_CASE(64, launch_tc)
+    REPRO_PREFILL_CASE(64, launch_wg)
     REPRO_PREFILL_CASE(112, launch_tc)
-    REPRO_PREFILL_CASE(128, launch_tc)
+    REPRO_PREFILL_CASE(128, launch_wg)
     REPRO_PREFILL_CASE(256, launch_wg)
     default:
       return -1;

@@ -1,50 +1,54 @@
-// bf16 chunked-prefill flash attention at head dim 256 (Gemma, Gemma-2)
-// for Hopper: wgmma, TMA and a warp-specialised producer.
+// bf16 chunked-prefill flash attention at head dims 64, 128 and 256 for
+// Hopper: wgmma, TMA and a warp-specialised producer.
 //
-// Replaces, for bf16 inputs at D = 256, the TPU kernel
+// Replaces, for bf16 inputs at D = 64, 128 and 256, the TPU kernel
 // src/repro/kernels/chunked_prefill_attention.py (_kernel, launched by
 // pl.pallas_call at :111); chunked_prefill_attention.cu dispatches here and
-// keeps prefill_tc_kernel (mma.sync) for D <= 128.  It computes what that
-// kernel computes: row t of q sits at offset[b] + t; key k_pos is visible
-// iff k_pos <= q_pos, k_pos < lengths[b] and, when window > 0, k_pos >
-// q_pos - window; softcap (tanh) when softcap > 0; a row with no visible
-// key gets the mean of v over all Skv keys.
+// keeps prefill_tc_kernel (mma.sync) for D = 16, 32 and 112.  It computes
+// what that kernel computes: row t of q sits at offset[b] + t; key k_pos is
+// visible iff k_pos <= q_pos, k_pos < lengths[b] and, when window > 0,
+// k_pos > q_pos - window; softcap (tanh) when softcap > 0; a row with no
+// visible key gets the mean of v over all Skv keys.
 //
 // What bounds it: ~4 D flops per visible (query, key) pair on bf16 tensor
-// cores.  Gemma-2-9B's prompt past its window (Sq 5120, len 4600, window
-// 4096, 16 / 8 heads) is 204 GFLOP: 0.206 ms at 989 TFLOP/s, where its
-// bytes take 0.03 ms.  mma.sync from 4 warps (prefill_tc_kernel<256>)
-// spilled and reached 0.10 of that; only wgmma reaches the full rate.
+// cores.  Llama-3.1-8B's burst prompt (Sq 2048, len 1500, 32 / 8 heads,
+// D 128) is 31.9 GFLOP, 0.032 ms at 989 TFLOP/s; Gemma-2-9B's prompt past
+// its window (Sq 5120, len 4600, window 4096, 16 / 8 heads, D 256) 204
+// GFLOP, 0.206 ms.  mma.sync from 4 warps (prefill_tc_kernel) reached 0.10
+// to 0.15 of that; only wgmma reaches the full rate.
 //
 // Design (FlashAttention-3's shape, simplified):
 //  * A block of 384 threads owns BM = 128 packed query rows of one kv head
 //    (row p is token p / G, query head p % G of the group), so every K/V
 //    tile is read once for the G heads.  Warpgroups 0 and 1 consume, 64
-//    rows each; warpgroup 2 produces.  Grid (ceil(Sq G / BM), Hkv, B), the
-//    last rows of the prompt (the most keys) first.  Only the kv tiles that
-//    hold a key some row of the block can see are visited.
+//    rows each; warpgroup 2 produces.  Grid (Hkv ceil(Sq G / BM), B),
+//    block x on row block x / Hkv from the end of kv head x % Hkv: the
+//    blocks of the last rows of the prompt (the most keys), every head's,
+//    go first, so a grid of several waves ends on its lightest blocks.
+//    Only the kv tiles that hold a key some row of the block can see are
+//    visited.
 //  * The producer lowers its registers to 24 (setmaxnreg) and one of its
 //    threads keeps TMA loads of 64-key K and V tiles in flight, in a ring of
 //    2 stages with full / empty mbarriers, K and V on barriers of their
-//    own so that Q K^T starts before V lands.  A tile is 4 boxes of 64
+//    own so that Q K^T starts before V lands.  A tile is D / 64 boxes of 64
 //    columns (128 B, the swizzle's span) x 64 keys of one head, from a 4-D
 //    map (D, Hkv, Skv, B): rows past Skv come as zeros.  The consumers raise
 //    theirs to 240.
-//  * Q (64 KB) comes once by cp.async into the same 128-byte-swizzled
-//    layout.  Shared memory: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB, one
-//    block an SM.
-//  * S = Q K^T: 16 x wgmma m64n64k16, Q and K both K-major from swizzled
-//    shared memory, f32 in registers (32 a thread).  The online softmax
-//    runs on that accumulator as in prefill_tc_kernel (log2 domain, row max
-//    and sum by quad shuffles), and it is what sets the pace: with two
-//    warps a scheduler its instructions, not the tensor cores, bound a
+//  * Q comes once by cp.async into the same 128-byte-swizzled layout.
+//    Shared memory: Q (128 D 2 B) + 2 x (K + V, 64 D 2 B each): 192 KB at
+//    D = 256, 96 KB at 128, 48 KB at 64; registers hold one block an SM.
+//  * S = Q K^T: D / 16 x wgmma m64n64k16, Q and K both K-major from
+//    swizzled shared memory, f32 in registers (32 a thread).  The online
+//    softmax runs on that accumulator as in prefill_tc_kernel (log2 domain,
+//    row max and sum by quad shuffles), and it is what sets the pace: with
+//    two warps a scheduler its instructions, not the tensor cores, bound a
 //    tile.  So the softcap is a template flag, a tile every row of the
 //    warpgroup sees whole runs code without the mask, exp2 is ex2.approx
 //    and tanh is computed from ex2 and rcp.approx (tanh_fast).
-//  * O += P V: wgmma m64n256k16 with A, the bf16 P, from registers (the
-//    S accumulator's fragment, packed) and B, V, key-major from shared
-//    memory with the transpose bit; P as a hi + lo pair (p_hi = bf16(p),
-//    p_lo = bf16(p - p_hi)), two products into one f32 accumulator (128 a
+//  * O += P V: wgmma m64nDk16 with A, the bf16 P, from registers (the S
+//    accumulator's fragment, packed) and B, V, key-major from shared memory
+//    with the transpose bit; P as a hi + lo pair (p_hi = bf16(p), p_lo =
+//    bf16(p - p_hi)), two products into one f32 accumulator (D / 2 a
 //    thread), the row sum from the f32 P (a single bf16 P fails the
 //    reference's 2e-5 + 2 bf16 steps bound: kernels/ref.py
 //    chunked_prefill_attention_split_p_ref).  Each product is committed
@@ -53,7 +57,19 @@
 //    softmax runs while P V holds the tensor cores (FlashAttention-3's
 //    intra-warpgroup overlap); O is rescaled once P V has landed.  (Issuing
 //    Q K^T before the rescale, and FlashAttention-3's ping-pong of the two
-//    warpgroups, measured no faster on an H100.)
+//    warpgroups, measured no faster on an H100 at D = 256.)
+//  * Tile and ring, measured at D = 128 on an H100 80GB HBM3 at 700 W
+//    (chip_prefill_probe.py --variants bn128,stages3,per-head-order, two
+//    turns each): 64-key tiles against 128 (S and P 64 registers each)
+//    0.0191 against 0.0202 ms at Llama's 512-token prompt, 0.0208 against
+//    0.0237 at Qwen's, 0.113 against 0.108 at the burst prompt, 0.206
+//    against 0.197 at the planned convertible chunk: 128-key tiles lose
+//    6-14 % where prompts are short, the most launched rows, and gain 4-5 %
+//    where they are long, so 64 at every D.  3 stages gain nothing (within
+//    2 %).  Heaviest rows first across every head, against per head:
+//    0.0208 against 0.0263 ms at Qwen's prompt (160 blocks, two waves),
+//    0.113 against 0.118 at the burst, 0.206 against 0.221 at the chunk,
+//    0.0191 against 0.0186 at Llama's prompt (one wave).
 //  * Dead keys weigh exactly 0: a TMA tile copies real memory up to the
 //    tensor's edge, so the first and last tile may hold rows behind the
 //    window or past lengths[b], whatever they contain (NaN too).  S of such
@@ -74,7 +90,7 @@ namespace {
 
 constexpr int kWgBM = 128;      // packed query rows a block
 constexpr int kWgBN = 64;       // keys a tile (kernels/ref.py PREFILL_TILE_KEYS)
-constexpr int kWgStages = 2;
+constexpr int kWgStages = 2;    // slots of the K / V ring
 constexpr int kWgConsumers = 2;                    // warpgroups of 64 rows
 constexpr int kWgThreads = 128 * (kWgConsumers + 1);
 
@@ -196,10 +212,10 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 #define REPRO_F32(d, i)                                                    \
   REPRO_F8(d, i), REPRO_F8(d, i + 8), REPRO_F8(d, i + 16), REPRO_F8(d, i + 24)
 
-// d (64 x 64, f32) += a (64 x 16) b (16 x 64)^T: a and b K-major bf16 in
-// shared memory (descriptors).
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
-                                                   uint64_t b) {
+// d (64 x 64, f32) += a (64 x 16) b (64 x 16)^T: a and b K-major bf16 in
+// shared memory (descriptors).  S = Q K^T of a 64-key tile.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -212,11 +228,43 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 256, f32) += a (64 x 16, bf16 fragment in registers) b (16 x 256):
-// b from shared memory MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t b) {
+// d (64 x N, f32) += a (64 x 16, bf16 fragment in registers) b (16 x N),
+// N = 2 x d's size: b from shared memory MN-major (the transpose bit).
+// O += P V.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_F32(d, 0), REPRO_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -254,7 +302,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       const int* __restrict__ lengths,
                       __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq,
                       int Hkv, int window, float softcap, float scale) {
-  static_assert(D == 256, "one wgmma n256 product covers O's columns");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "one wgmma m64nDk16 product covers O's columns");
   using L = WgLayout<D>;
   constexpr int CB = D / 64;     // 128-byte column blocks of a row
   constexpr int NT = kWgBN / 8;  // 8-key n-blocks of S
@@ -268,9 +317,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* empty_v = empty_k + kWgStages;
 
   const int G = Hq / Hkv;
-  const int hk = blockIdx.y, b = blockIdx.z;
+  // block x is row block x / Hkv from the end of kv head x % Hkv: the
+  // last rows of the prompt (the most keys) first, every head's
+  const int hk = blockIdx.x % Hkv, b = blockIdx.y;
   const int P = Sq * G;                                  // packed rows
-  const int p0 = (gridDim.x - 1 - blockIdx.x) * kWgBM;   // heaviest first
+  const int p0 = (gridDim.x / Hkv - 1 - blockIdx.x / Hkv) * kWgBM;
   const int tid = threadIdx.x;
   const int off = offset[b];
   const int len = min(lengths[b], Skv);
@@ -369,12 +420,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        wgmma_m64n64k16_ss(
-            sc,
-            sw128_desc(q_addr + (ks >> 2) * L::kQBlock + (ks & 3) * 32, 16,
-                       1024),
-            sw128_desc(k_addr + (ks >> 2) * L::kKVBlock + (ks & 3) * 32, 16,
-                       1024));
+        wgmma_ss(sc,
+                 sw128_desc(q_addr + (ks >> 2) * L::kQBlock + (ks & 3) * 32,
+                            16, 1024),
+                 sw128_desc(k_addr + (ks >> 2) * L::kKVBlock + (ks & 3) * 32,
+                            16, 1024));
       wgmma_commit();
     };
     // O += P V of tile it, issued; V's rows outside [k_lo, k_hi) (the
@@ -399,8 +449,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int kk = 0; kk < kWgBN / 16; ++kk) {
         const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, L::kKVBlock,
                                        1024);
-        wgmma_m64n256k16_rs(o, ph[kk], dv);
-        wgmma_m64n256k16_rs(o, pl[kk], dv);
+        wgmma_rs(o, ph[kk], dv);
+        wgmma_rs(o, pl[kk], dv);
       }
       wgmma_commit();
     };
@@ -605,7 +655,7 @@ int launch_wg(const void* q, const void* k, const void* v, const void* offset,
       !kv_map(encode, &tm_v, v, B, Skv, Hkv, D))
     return (int)cudaErrorInvalidValue;
   const int P = Sq * (Hq / Hkv);
-  const dim3 grid((P + kWgBM - 1) / kWgBM, Hkv, B);
+  const dim3 grid(Hkv * ((P + kWgBM - 1) / kWgBM), B);
   kernel<<<grid, kWgThreads, WgLayout<D>::kBytes, stream>>>(
       tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(offset),

@@ -7,9 +7,10 @@ tensors it is given: on the CPU it runs the plain version in
 ``kernels/ref.py``; on a CUDA device it launches the kernel, and raises if
 the kernel does not take the inputs or fails to launch.  There is no
 switch and no fallback.  ``LAUNCHES`` counts the kernel launches, so a run
-can show that it went through the kernels.  ``decode_attention_partial``
-has no counterpart there: it is the decode kernel's entry for one rank's
-slice of a cache split over its positions (``models/ops._ctx_decode``).
+can show that it went through the kernels, and ``PREFILL_SHAPES`` counts
+the prefill kernel's by shape.  ``decode_attention_partial`` has no
+counterpart there: it is the decode kernel's entry for one rank's slice
+of a cache split over its positions (``models/ops._ctx_decode``).
 
 ``prefill_attention`` and ``wkv6_op`` are differentiable, through one
 ``torch.autograd.Function`` each (``_PrefillAttention``, ``_WKV6``), on
@@ -33,6 +34,8 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"chunked_prefill_attention": 0, "decode_attention": 0,
             "decode_attention_partial": 0, "paged_decode_attention": 0,
             "wkv6": 0}
+#: the prefill kernel's launches by (dtype, B, Sq, Skv, Hq, Hkv, D)
+PREFILL_SHAPES: dict = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
@@ -41,6 +44,7 @@ HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    PREFILL_SHAPES.clear()
 
 
 def _check_cuda(q, k, v):
@@ -141,6 +145,8 @@ def _prefill_forward(q, k, v, offset, lengths, window, softcap, scale):
              float(scale), _stream(q))
     _raise_on(err, "chunked_prefill_attention")
     LAUNCHES["chunked_prefill_attention"] += 1
+    key = (str(q.dtype).removeprefix("torch."), B, Sq, Skv, Hq, Hkv, D)
+    PREFILL_SHAPES[key] = PREFILL_SHAPES.get(key, 0) + 1
     return out
 
 

@@ -78,7 +78,7 @@ def chunked_prefill_attention_ref(
 
 LOG2E = 1.4426950408889634
 #: keys a tile of both bf16 prefill kernels: csrc/chunked_prefill_attention.cu
-#: kBK (D <= 128) and csrc/prefill_wg.cuh kWgBN (D = 256)
+#: kBK (D = 16, 32, 112) and csrc/prefill_wg.cuh kWgBN (D = 64, 128, 256)
 PREFILL_TILE_KEYS = 64
 
 

@@ -827,6 +827,84 @@ def test_prefill_kernel_d256_nan_in_dead_keys(cuda, case, dtype):
         _close(dirty, want, 2e-5)
 
 
+# ---------------------------------------------------------------------------
+# bf16 prefill at head dims 64 and 128 on prefill_wg_kernel (wgmma + TMA)
+# ---------------------------------------------------------------------------
+
+WG_PREFILL = {
+    # id: (B, Sq, Skv, Hq, Hkv, D, window, softcap, offsets, lengths)
+    "llama-prompt": (1, 512, 2048, 32, 8, 128, 0, 0.0, [0], [512]),
+    "llama-planned-chunk": (1, 2816, 4096, 32, 8, 128, 0, 0.0, [0], [2816]),
+    "llama-last-chunk": (1, 1280, 4096, 32, 8, 128, 0, 0.0, [2816], [3540]),
+    "qwen-group-of-5": (1, 512, 2048, 40, 8, 128, 0, 0.0, [0], [512]),
+    "mqa-6-over-1": (2, 200, 512, 6, 1, 128, 0, 0.0, [0, 300], [200, 500]),
+    "window-softcap": (1, 256, 384, 2, 2, 128, 64, 50.0, [100], [384]),
+    "ragged-chunks": (2, 96, 320, 16, 2, 128, 64, 0.0, [100, 0], [196, 60]),
+    "qwen2-0.5b-d64": (1, 512, 2048, 14, 2, 64, 0, 0.0, [0], [512]),
+    "musicgen-d64-window-softcap": (2, 150, 700, 32, 32, 64, 300, 50.0,
+                                    [500, 37], [650, 187]),
+    # rows 20.. of the window-8 layer see no key: the mean of v over Skv
+    "row-without-visible-key-d128": (1, 40, 96, 8, 2, 128, 8, 0.0, [15],
+                                     [20]),
+    "row-without-visible-key-d64": (1, 40, 96, 8, 2, 64, 8, 50.0, [15],
+                                    [20]),
+}
+
+
+def _wg_inputs(cuda, case, seed):
+    B, Sq, Skv, Hq, Hkv, D, window, cap, offs, lens = WG_PREFILL[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = _randn(g, B, Sq, Hq, D, dtype=torch.bfloat16)
+    k = _randn(g, B, Skv, Hkv, D, dtype=torch.bfloat16)
+    v = _randn(g, B, Skv, Hkv, D, dtype=torch.bfloat16)
+    o = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    n = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, o, n, dict(window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("case", list(WG_PREFILL))
+def test_prefill_kernel_wg_d64_d128(cuda, case):
+    """bf16 prefill at D = 64 and 128 runs prefill_wg_kernel: against the
+    plain version and the plain version with the kernel's rounding (3e-2,
+    and 2e-5 + 2 bf16 steps), two calls bit-equal, one launch a call."""
+    q, k, v, o, n, args = _wg_inputs(cuda, case, seed=len(case))
+    kops.reset_launches()
+    out = kops.prefill_attention(q, k, v, o, n, **args)
+    assert kops.LAUNCHES["chunked_prefill_attention"] == 1
+    for want in (ref.chunked_prefill_attention_ref(q, k, v, o, n, **args),
+                 ref.chunked_prefill_attention_split_p_ref(q, k, v, o, n,
+                                                           **args)):
+        _close(out, want, 3e-2)
+        _within_bf16_steps(out, want)
+    again = kops.prefill_attention(q, k, v, o, n, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("case", ["llama-last-chunk", "mqa-6-over-1",
+                                  "window-softcap", "ragged-chunks",
+                                  "musicgen-d64-window-softcap"])
+def test_prefill_kernel_wg_d64_d128_nan_in_dead_keys(cuda, case):
+    """NaN in K and V at every key no row can see (behind every row's
+    window, at and past lengths; in the first and the last tile a block
+    loads) changes no bit of the bf16 output at D = 64 and 128."""
+    q, k, v, o, n, args = _wg_inputs(cuda, case, seed=len(case) + 1)
+    clean = kops.prefill_attention(q, k, v, o, n, **args)
+    want = ref.chunked_prefill_attention_ref(q, k, v, o, n, **args)
+    window = args["window"]
+    for b, (off, ln) in enumerate(zip(o.tolist(), n.tolist())):
+        for t in (k, v):
+            t[b, ln:] = float("nan")
+            if window:
+                t[b, :max(off - window + 1, 0)] = float("nan")
+    dirty = kops.prefill_attention(q, k, v, o, n, **args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean)
+    _close(dirty, want, 3e-2)
+    _within_bf16_steps(dirty, want)
+
+
 D256_DECODE = {
     # id: (L, Hq, Hkv, window, softcap, cur_lens)
     "gemma2-window-bites": (5120, 16, 8, 4096, 50.0, [0, 700, 1500, 4600]),
