@@ -51,6 +51,8 @@ PREFILL_SHAPES = [
     ("Qwen2-0.5B heads, burst prompt", 1, 2048, 2048, 14, 2, 64, 0, 1500, 0,
      0.0),
     ("Kimi K2 heads, prompt", 1, 512, 2048, 64, 8, 112, 0, 512, 0, 0.0),
+    ("Kimi K2 heads, burst prompt", 1, 2048, 2048, 64, 8, 112, 0, 1500, 0,
+     0.0),
     ("Gemma-2-9B heads, prompt, softcap 50", 1, 512, 2048, 16, 8, 256, 0,
      512, 0, 50.0),
     ("Gemma-2-9B heads past the window", 1, 5120, 5120, 16, 8, 256, 0, 4600,

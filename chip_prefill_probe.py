@@ -11,7 +11,7 @@ softmax; wait for P V; rescale O and pack P), each into its own library
 under build/prefill_probe/, and with --variants one more library for each
 named entry of VARIANTS (prefill_wg.cuh with a tile, ring or grid order
 changed), all compiled at once.  At each of SHAPES (phase 2's bf16 prefill
-rows at head dims 64, 128 and 256) it checks
+rows at head dims 64, 112, 128 and 256) it checks
 the probed copy's output bit-equal to the shipped kernel's and each
 variant's within 2e-5 + 2 bf16 steps of the plain version, times them in
 turns (shipped, probe, the variants, then the same backwards), and prints
@@ -82,6 +82,8 @@ SHAPES = {"1 prompt": (32, 8, 128, 512, 2048, 0, 512, 0, 0.0),
           "1p burst prompt": (32, 8, 128, 2048, 2048, 0, 1500, 0, 0.0),
           "1c planned chunk": (32, 8, 128, 2816, 4096, 0, 2816, 0, 0.0),
           "1h Qwen2-0.5B prompt": (14, 2, 64, 512, 2048, 0, 512, 0, 0.0),
+          "1k Kimi prompt": (64, 8, 112, 512, 2048, 0, 512, 0, 0.0),
+          "1kp Kimi burst prompt": (64, 8, 112, 2048, 2048, 0, 1500, 0, 0.0),
           "1b prompt": (16, 8, 256, 512, 2048, 0, 512, 0, 50.0),
           "1bw prompt past the window": (16, 8, 256, 5120, 5120, 0, 4600,
                                          4096, 50.0),
@@ -111,6 +113,25 @@ SS_N128 = """__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a
 RS_NOTE = "// d (64 x N, f32) += a (64 x 16, bf16 fragment in registers)"
 
 
+def wgmma_rs_n(n):
+    """The m64n{n}k16 form of wgmma_rs (A from registers, B MN-major), on
+    an accumulator of n / 2 registers a thread."""
+    r = n // 2
+    regs = ", ".join(f"%{i}" for i in range(r))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(r))
+    return (f"__device__ __forceinline__ void wgmma_rs(float (&d)[{r}],\n"
+            f"    const uint32_t (&a)[4], uint64_t b) {{\n"
+            f"  asm volatile(\n"
+            f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"\n'
+            f'      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "\n'
+            f'      "{{{regs}}}, "\n'
+            f'      "{{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, '
+            f'1;\\n}}\\n"\n'
+            f"      : {outs}\n"
+            f'      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), '
+            f'"r"(1));\n}}\n\n')
+
+
 def per_d(const, fn, expr):
     """Rewrites that make prefill_wg.cuh's `const` a function `fn` of the
     head dim, `expr` in D, at its declaration and at every use."""
@@ -126,6 +147,14 @@ VARIANTS = {
     "bn128": [("{64, 1, kWgBN, 1}", "{64, 1, (cuuint32_t)kWgBN, 1}")]
     + per_d("kWgBN", "wg_bn", "D == 256 ? 64 : 128")
     + [(RS_NOTE, SS_N128 + RS_NOTE)],
+    # at D = 112, O's product m64n112k16 (V's second block read in part)
+    # in place of m64n128k16 over the zero-padded block
+    "n112": [("constexpr int CB = DP / 64;",
+              "constexpr int CB = DP / 64;\n"
+              "  constexpr int kON = D == 112 ? D / 2 : DP / 2;"),
+             ("float o[DP / 2];", "float o[kON];"),
+             ("i < DP / 2; ++i) o[i] = 0.f;", "i < kON; ++i) o[i] = 0.f;"),
+             (RS_NOTE, wgmma_rs_n(112) + RS_NOTE)],
     "stages3": per_d("kWgStages", "wg_stages", "D == 256 ? 2 : 3"),
     "stages4": per_d("kWgStages", "wg_stages", "D == 256 ? 2 : 4"),
     # the grid (row blocks, Hkv, B): the heaviest rows first per head

@@ -7,9 +7,9 @@ Phases (any failure exits non-zero; nothing is skipped):
   1. build   — compile the four CUDA kernels from src/repro_torch/kernels/csrc
                (one nvcc each, in parallel) and print every instantiation's
                ptxas registers and spills (no decode and no bf16 prefill
-               instantiation may spill; the wgmma bf16 prefill kernel's
-               (D = 64, 128, 256) registers on a line of their own; the
-               ten D = 112
+               instantiation may spill; the bf16 prefill kernel's (wgmma
+               + TMA, every head dim) registers on a line of their own;
+               the eleven D = 112
                instantiations on a line of their own, none spilling); the
                bf16 decode kernel's blocks an SM by head dim
                from the card's occupancy calculator, held to the split
@@ -28,7 +28,7 @@ Phases (any failure exits non-zero; nothing is skipped):
                under the same bounds; the decode kernel at G = 1, 2, 7, 12
                and 16 (MusicGen-large, Gemma-2-9B's global layers,
                Qwen2-0.5B, two n-tiles of heads at D = 128 and 256); the
-               prefill sweep in bf16 (the tensor-core path: 3e-2 and the
+               prefill sweep in bf16 (the wgmma path: 3e-2 and the
                bf16-steps bound) and the f32 sweeps (the CUDA-core path,
                2e-5), NaN in the decode kernel's dead region in both
                dtypes; the
@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is skipped):
                the plain versions eagerly; also the prefill kernel at the
                convertible chunk, and as rows of their own the burst prompt
                (1p) and phase 11's planned chunk into its cache (1c), each
-               beside SDPA (bf16 prefill at D = 64 and 128 is the wgmma +
+               beside SDPA (bf16 prefill at every head dim is the wgmma +
                TMA kernel: at the main-path cases also against its own
                arithmetic and bit-equal to itself), WKV6 at a
                256-token chunk from a carried state, device time by kernel
@@ -73,14 +73,18 @@ Phases (any failure exits non-zero; nothing is skipped):
                bound, plain version and SDPA; then
                the three attention kernels at Kimi K2's head dim 112 (64 /
                8 heads, G = 8) in bf16 and f32: prefill at a prompt, a
-               chunk at an offset with window and softcap and a ragged
-               batch (bf16 also against its own arithmetic), decode at the
+               chunk at an offset with window and softcap, a ragged batch
+               and the burst prompt (bf16, the wgmma + TMA kernel with its
+               rows padded to 128 columns, also against its own
+               arithmetic), the B = 1 cases again with NaN in every key no
+               row sees, bit-equal to the clean output; decode at the
                decode rows' lengths and with a window across split
                boundaries (also against the split-and-merge version and in
                bf16 the tensor-core kernel's arithmetic), paged bit-equal
                to contiguous, every call bit-equal to itself, and rows 1k
-               (prefill B=1 Sq=512 Skv=2048) and 2k (decode B=4 L=2048)
-               timed beside the bound, plain version and SDPA; then
+               (prefill B=1 Sq=512 Skv=2048), 1kp (the burst prompt, Sq =
+               Skv = 2048, len 1500) and 2k (decode B=4 L=2048) timed
+               beside the bound, plain version and SDPA; then
                the decode kernel's rank-slice entry (decode_attention_
                partial: one slice of a cache split over its positions,
                f32 o and lse) against its plain version at Llama-3.1-8B's,
@@ -551,6 +555,7 @@ def bf16_bound_share(out, want):
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
     t = time.perf_counter()
     build.build_all()
     log(f"[build] all {len(build.SOURCES)} kernels built in "
@@ -564,32 +569,28 @@ def phase_build():
                      if "112" in k.split("<")[1].rstrip(">").split(",")})
         if "decode" in name:
             decode.update({f"{name}: {k}": v for k, v in rep.items()})
-        # the bf16 prefill kernels: mma.sync at D = 16, 32, 112, wgmma at
-        # 64, 128, 256
+        # the bf16 prefill kernel (wgmma + TMA) at every head dim
         prefill.update({k: v for k, v in rep.items()
-                        if k.startswith(("prefill_tc_kernel",
-                                         "prefill_wg_kernel"))})
+                        if k.startswith("prefill_wg_kernel")})
     log(f"[build] head dim 256 instantiations: ptxas {d256}")
     spills = {k: v for k, v in d112.items() if "spills 0/0 B" not in v}
     log(f"[build] head dim 112 instantiations: ptxas {d112}; spilling: "
         f"{spills}")
-    check(len(d112) == 10 and not spills,
+    check(len(d112) == 11 and not spills,
           "a head dim 112 instantiation spills or is missing")
     spills = {k: v for k, v in decode.items() if "spills 0/0 B" not in v}
     log(f"[build] decode instantiations: {len(decode)}, spilling: {spills}")
     check(decode and not spills, "a decode instantiation spills")
-    wg = {k: v for k, v in prefill.items() if k.startswith("prefill_wg")}
-    log(f"[build] the bf16 prefill kernel at D = 64, 128 and 256, without "
-        f"and with a softcap: ptxas {wg} (registers at entry; setmaxnreg "
+    log(f"[build] the bf16 prefill kernel at every head dim, without and "
+        f"with a softcap: ptxas {prefill} (registers at entry; setmaxnreg "
         f"gives its consumer warpgroups 240, its producer 24)")
     spills = {k: v for k, v in prefill.items() if "spills 0/0 B" not in v}
     log(f"[build] bf16 prefill instantiations: {len(prefill)}, spilling: "
         f"{spills}")
-    check(len(wg) == 6 and len(prefill) == 9 and not spills,
+    check(len(prefill) == 2 * len(kops.HEAD_DIMS) and not spills,
           "a bf16 prefill instantiation spills or is missing")
     # the bf16 decode kernel's blocks an SM, as the split rule counts them
     # and as the card's occupancy calculator gives them
-    from repro_torch.kernels import ops as kops
     lib = build.lib("decode_attention")
     occ = {D: (lib.decode_blocks_per_sm(D), kops.decode_blocks_per_sm(D))
            for D in kops.HEAD_DIMS}
@@ -736,7 +737,7 @@ def phase_parity():
                 f"L={L}: two calls bit-equal: {same}")
         del q, k, v
 
-    # the reference's kernel-test sweep: bf16 runs the tensor-core path
+    # the reference's kernel-test sweep: bf16 runs the wgmma path
     # (3e-2 and the bf16-steps bound), f32 the CUDA-core path (2e-5)
     for dt in (bf, f32):
         worst = share = 0.0
@@ -1497,7 +1498,10 @@ def parity_wg_small_dims(g):
 
 
 #: phase 2's cases at head dim 112 (Kimi K2: 64 / 8 heads, G = 8).
-#: Prefill: label -> (B, Sq, Skv, offsets, lengths, window, softcap)
+#: Prefill (bf16: prefill_wg_kernel<112, *>, rows padded to 128 columns;
+#: f32: prefill_f32_kernel<112>): label -> (B, Sq, Skv, offsets, lengths,
+#: window, softcap); the B = 1 cases again with NaN in the keys no row sees
+KIMI_BURST = "Kimi heads, burst prompt Sq=2048 Skv=2048 len=1500"
 KIMI_PREFILL = {
     "Kimi heads, prompt Sq=512 Skv=2048 len=512": (1, 512, 2048, [0], [512],
                                                    0, 0.0),
@@ -1505,6 +1509,7 @@ KIMI_PREFILL = {
     "softcap 50": (1, 256, 2048, [1536], [1700], 1024, 50.0),
     "Kimi heads, ragged batch B=2 Sq=320 off=[300, 0] len=[600, 200], "
     "window 256": (2, 320, 1024, [300, 0], [600, 200], 256, 0.0),
+    KIMI_BURST: (1, 2048, 2048, [0], [1500], 0, 0.0),
 }
 #: Decode: label -> (L, cur_lens, window, softcap); splits of 128 positions
 KIMI_DECODE = {
@@ -1517,20 +1522,23 @@ KIMI_DECODE = {
 def parity_head_dim_112(g):
     """The three attention kernels at head dim 112 (Kimi K2, 64 / 8 heads)
     against their plain versions, in bf16 (3e-2 and 2e-5 + 2 bf16 steps)
-    and f32 (2e-5): prefill (prefill_tc_kernel<112>, prefill_f32_kernel<112>)
-    at a prompt, a chunk at an offset with a window and softcap, a ragged
-    batch, in bf16 also against its own arithmetic
-    (chunked_prefill_attention_split_p_ref); decode (decode_tc_kernel<112>,
+    and f32 (2e-5): prefill (prefill_wg_kernel<112, *>,
+    prefill_f32_kernel<112>) at a prompt, a chunk at an offset with a
+    window and softcap, a ragged batch and the burst prompt, in bf16 also
+    against its own arithmetic (chunked_prefill_attention_split_p_ref), the
+    B = 1 cases with NaN in every key no row sees bit-equal to the clean
+    output; decode (decode_tc_kernel<112>,
     decode_split_kernel<f32, 112>) at the decode rows' cache lengths and
     with a window across split boundaries, also against the plain
     split-and-merge version and in bf16 the tensor-core kernel's
     arithmetic; paged decode over interleaved pages, bit-equal to the
     contiguous kernel on the gathered KV; every kernel bit-equal to itself
     (the rank-slice entry's case at these heads is in PARTIAL_PARITY).
-    Then rows 1k and 2k: prefill at B=1 Sq=512 Skv=2048 (len 512) and
-    decode at B=4 L=2048 (DECODE_CUR), each beside its bound, the plain
-    version and SDPA (the same function: no window, no softcap).  Returns
-    (bf16 errors, rows) keyed by kernel."""
+    Then rows 1k, 1kp and 2k: prefill at B=1 Sq=512 Skv=2048 (len 512)
+    and at the burst prompt (Sq = Skv = 2048, len 1500) and decode at B=4
+    L=2048 (DECODE_CUR), each beside its bound, the plain version and SDPA
+    (the same function: no window, no softcap).  Returns (bf16 errors,
+    rows) keyed by the kernels line's names, less the _kimi suffix."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
@@ -1539,7 +1547,7 @@ def parity_head_dim_112(g):
     bf, f32, Hq, Hkv, D = torch.bfloat16, torch.float32, 64, 8, 112
     errs = {"chunked_prefill_attention": 0.0, "decode_attention": 0.0,
             "paged_decode_attention": 0.0}
-    ok = True
+    ok, burst_err = True, 0.0
     tables = torch.as_tensor(interleaved_tables([c + 1 for c in DECODE_CUR],
                                                 40, 16), device="cuda")
     safe = tables.clamp(min=0).long()
@@ -1552,10 +1560,13 @@ def parity_head_dim_112(g):
             v = _rand(g, (B, Skv, Hkv, D), dt)
             o, ln, args = i32(offs), i32(lens), dict(window=win, softcap=cap)
             out = kops.prefill_attention(q, k, v, o, ln, **args)
+            want = ref.chunked_prefill_attention_ref(q, k, v, o, ln, **args)
             ok &= judge_attention(
                 errs, "chunked_prefill_attention", f"D=112 {label}", dt, out,
-                ref.chunked_prefill_attention_ref(q, k, v, o, ln, **args))
+                want)
             if dt == bf:
+                if label == KIMI_BURST:
+                    burst_err = max_err(out, want)
                 ok &= judge_attention(
                     errs, "chunked_prefill_attention", f"D=112 {label}, vs "
                     "the kernel's arithmetic (split_p_ref)", dt, out,
@@ -1566,6 +1577,10 @@ def parity_head_dim_112(g):
             ok &= same
             log(f"[parity] chunked_prefill_attention {tag} D=112 {label}: two "
                 f"calls bit-equal: {same}")
+            del q, k, v, out, want
+            if B == 1:
+                ok &= prefill_dead_keys(g, dt, Hq, Hkv, Sq, Skv, offs[0],
+                                        lens[0], win, cap, D=D)
         for label, (L, curs, win, cap) in KIMI_DECODE.items():
             B, cur, args = len(curs), i32(curs), dict(window=win, softcap=cap)
             q = _rand(g, (B, Hq, D), dt)
@@ -1617,22 +1632,29 @@ def parity_head_dim_112(g):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                               enable_gqa=True)
 
-    sets = []
-    for _ in range(n_copies((512 * Hq + 2 * 2048 * Hkv) * D * 2)):
-        q = _rand(g, (1, 512, Hq, D), bf)
-        k, v = _rand(g, (1, 2048, Hkv, D), bf), _rand(g, (1, 2048, Hkv, D), bf)
-        sets.append((q, k, v, i32([0]), i32([512])))
-    ar = torch.arange(2048, device="cuda")
-    mask = (ar[None, :] <= torch.arange(512, device="cuda")[:, None]) \
-        & (ar[None, :] < 512)
-    rows = {"chunked_prefill_attention": timed_row(
-        kops.prefill_attention, ref.chunked_prefill_attention_ref, sets, sdpa,
-        [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-          mask[None, None]) for q, k, v, _, _ in sets],
-        bound=prefill_bound(sets[0][0], sets[0][1], [0], [512], 0),
-        shape="B=1 Sq=512 Skv=2048 Hq=64 Hkv=8 D=112 bf16, offset 0, "
-              "len 512 (Kimi K2 heads)")}
-    del sets
+    def prefill_row(Sq, n):
+        """Row of the prefill kernel at Kimi's heads, B=1, Sq rows from
+        offset 0 into 2048 keys of which n are live, beside SDPA."""
+        sets = []
+        for _ in range(n_copies((Sq * Hq + 2 * 2048 * Hkv) * D * 2)):
+            q = _rand(g, (1, Sq, Hq, D), bf)
+            k = _rand(g, (1, 2048, Hkv, D), bf)
+            sets.append((q, k, _rand(g, (1, 2048, Hkv, D), bf), i32([0]),
+                         i32([n])))
+        ar = torch.arange(2048, device="cuda")
+        mask = (ar[None, :] <= torch.arange(Sq, device="cuda")[:, None]) \
+            & (ar[None, :] < n)
+        return timed_row(
+            kops.prefill_attention, ref.chunked_prefill_attention_ref, sets,
+            sdpa, [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    mask[None, None]) for q, k, v, _, _ in sets],
+            bound=prefill_bound(sets[0][0], sets[0][1], [0], [n], 0),
+            shape=f"B=1 Sq={Sq} Skv=2048 Hq=64 Hkv=8 D=112 bf16, offset 0, "
+                  f"len {n} (Kimi K2 heads)")
+
+    rows = {"chunked_prefill_attention": prefill_row(512, 512),
+            "chunked_prefill_attention_burst": prefill_row(2048, 1500)}
+    errs["chunked_prefill_attention_burst"] = burst_err
     curs, dsets = i32(DECODE_CUR), []
     for _ in range(n_copies(4 * 2048 * Hkv * D * 2 * 2)):
         q = _rand(g, (4, Hq, D), bf)
@@ -4774,15 +4796,17 @@ def main() -> int:
             src["chunked_prefill_attention_d256"]
         launches[f"chunked_prefill_attention_{shape}_d256"] = \
             launches["chunked_prefill_attention_d256"]
-    # bf16 prefill at D = 64 and 128 is prefill_wg_kernel too: beside Llama's
-    # prompt row (phase 3's launches, every shape) and Qwen's (phase 8's),
-    # three rows counted at their own shapes: the burst prompt in phase 3
-    # (its prefiller pads a prompt of 1025-2048 tokens to 2048 rows), a
-    # chunk of the planned size into phase 11's 4096-row cache (whatever
-    # the chunk's length), and bf16 at D = 64 (Qwen2-0.5B's heads) in any
-    # serving run
+    # bf16 prefill at every other head dim is prefill_wg_kernel too: beside
+    # Llama's prompt row (phase 3's launches, every shape), Qwen's (phase
+    # 8's) and Kimi's (phase 17's), four rows counted at their own shapes:
+    # the burst prompt in phases 3 and 17 (their prefillers pad a prompt of
+    # 1025-2048 tokens to 2048 rows), a chunk of the planned size into
+    # phase 11's 4096-row cache (whatever the chunk's length), and bf16 at
+    # D = 64 (Qwen2-0.5B's heads) in any serving run
     for name in ("chunked_prefill_attention", "chunked_prefill_attention_qwen",
+                 "chunked_prefill_attention_kimi",
                  "chunked_prefill_attention_burst",
+                 "chunked_prefill_attention_burst_kimi",
                  "chunked_prefill_attention_planned_chunk",
                  "chunked_prefill_attention_d64"):
         src[name] = src["chunked_prefill_attention_d256"]
@@ -4790,6 +4814,8 @@ def main() -> int:
         f"Hq, Hkv, D) in each serving run: {SERVED}")
     launches["chunked_prefill_attention_burst"] = SERVED["serve"].get(
         ("bfloat16", 1, 2048, 2048, 32, 8, 128), 0)
+    launches["chunked_prefill_attention_burst_kimi"] = SERVED["kimi"].get(
+        ("bfloat16", 1, 2048, 2048, 64, 8, 112), 0)
     launches["chunked_prefill_attention_planned_chunk"] = SERVED[
         "control"].get(("bfloat16", 1, convertible_chunk(),
                         CONVERTIBLE_MAX_LEN, 32, 8, 128), 0)

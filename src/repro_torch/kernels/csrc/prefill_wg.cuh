@@ -1,21 +1,23 @@
-// bf16 chunked-prefill flash attention at head dims 64, 128 and 256 for
-// Hopper: wgmma, TMA and a warp-specialised producer.
+// bf16 chunked-prefill flash attention for Hopper at every head dim the
+// port takes (16, 32, 64, 112, 128, 256): wgmma, TMA and a warp-specialised
+// producer.
 //
-// Replaces, for bf16 inputs at D = 64, 128 and 256, the TPU kernel
+// Replaces, for bf16 inputs, the TPU kernel
 // src/repro/kernels/chunked_prefill_attention.py (_kernel, launched by
-// pl.pallas_call at :111); chunked_prefill_attention.cu dispatches here and
-// keeps prefill_tc_kernel (mma.sync) for D = 16, 32 and 112.  It computes
-// what that kernel computes: row t of q sits at offset[b] + t; key k_pos is
-// visible iff k_pos <= q_pos, k_pos < lengths[b] and, when window > 0,
-// k_pos > q_pos - window; softcap (tanh) when softcap > 0; a row with no
-// visible key gets the mean of v over all Skv keys.
+// pl.pallas_call at :111); chunked_prefill_attention.cu dispatches every
+// bf16 call here.  It computes what that kernel computes: row t of q sits
+// at offset[b] + t; key k_pos is visible iff k_pos <= q_pos, k_pos <
+// lengths[b] and, when window > 0, k_pos > q_pos - window; softcap (tanh)
+// when softcap > 0; a row with no visible key gets the mean of v over all
+// Skv keys.
 //
 // What bounds it: ~4 D flops per visible (query, key) pair on bf16 tensor
 // cores.  Llama-3.1-8B's burst prompt (Sq 2048, len 1500, 32 / 8 heads,
 // D 128) is 31.9 GFLOP, 0.032 ms at 989 TFLOP/s; Gemma-2-9B's prompt past
 // its window (Sq 5120, len 4600, window 4096, 16 / 8 heads, D 256) 204
-// GFLOP, 0.206 ms.  mma.sync from 4 warps (prefill_tc_kernel) reached 0.10
-// to 0.15 of that; only wgmma reaches the full rate.
+// GFLOP, 0.206 ms.  mma.sync from 4 warps (this kernel's predecessor,
+// FlashAttention-2's shape) reached 0.10 to 0.15 of that; only wgmma
+// reaches the full rate.
 //
 // Design (FlashAttention-3's shape, simplified):
 //  * A block of 384 threads owns BM = 128 packed query rows of one kv head
@@ -30,26 +32,37 @@
 //  * The producer lowers its registers to 24 (setmaxnreg) and one of its
 //    threads keeps TMA loads of 64-key K and V tiles in flight, in a ring of
 //    2 stages with full / empty mbarriers, K and V on barriers of their
-//    own so that Q K^T starts before V lands.  A tile is D / 64 boxes of 64
-//    columns (128 B, the swizzle's span) x 64 keys of one head, from a 4-D
-//    map (D, Hkv, Skv, B): rows past Skv come as zeros.  The consumers raise
-//    theirs to 240.
+//    own so that Q K^T starts before V lands.  A tile is DP / 64 boxes of
+//    64 columns (128 B, the swizzle's span) x 64 keys of one head, from a
+//    4-D map (D, Hkv, Skv, B): rows past Skv come as zeros, and so do the
+//    columns past D of a box that reaches beyond the row.  The consumers
+//    raise theirs to 240.
+//  * A row holds DP = D rounded up to 64 columns in shared memory, whole
+//    swizzle blocks: at D = 112 the second box reads columns 64-111 and
+//    gets zeros for 112-127, at D = 16 and 32 one box pads the row to 64,
+//    so a tile is D = 128's or D = 64's, with the same swizzle,
+//    descriptors and P V product.  The padding comes from the map, not
+//    from a copy.  (TMA counts the zeros it writes: a stage expects DP / 64
+//    whole boxes.)
 //  * Q comes once by cp.async into the same 128-byte-swizzled layout.
-//    Shared memory: Q (128 D 2 B) + 2 x (K + V, 64 D 2 B each): 192 KB at
-//    D = 256, 96 KB at 128, 48 KB at 64; registers hold one block an SM.
+//    Shared memory: Q (128 DP 2 B) + 2 x (K + V, 64 DP 2 B each): 192 KB
+//    at D = 256, 96 KB at 112 and 128, 48 KB at 16-64; registers hold one
+//    block an SM.
 //  * S = Q K^T: D / 16 x wgmma m64n64k16, Q and K both K-major from
-//    swizzled shared memory, f32 in registers (32 a thread).  The online
-//    softmax runs on that accumulator as in prefill_tc_kernel (log2 domain,
-//    row max and sum by quad shuffles), and it is what sets the pace: with
-//    two warps a scheduler its instructions, not the tensor cores, bound a
-//    tile.  So the softcap is a template flag, a tile every row of the
-//    warpgroup sees whole runs code without the mask, exp2 is ex2.approx
-//    and tanh is computed from ex2 and rcp.approx (tanh_fast).
-//  * O += P V: wgmma m64nDk16 with A, the bf16 P, from registers (the S
+//    swizzled shared memory, f32 in registers (32 a thread); Q's columns
+//    past D are never read, so they are never written.  The online
+//    softmax runs on that accumulator (log2 domain, row max and sum by
+//    quad shuffles), and it is what sets the pace: with two warps a
+//    scheduler its instructions, not the tensor cores, bound a tile.  So
+//    the softcap is a template flag, a tile every row of the warpgroup
+//    sees whole runs code without the mask, exp2 is ex2.approx and tanh is
+//    computed from ex2 and rcp.approx (tanh_fast).
+//  * O += P V: wgmma m64nDPk16 with A, the bf16 P, from registers (the S
 //    accumulator's fragment, packed) and B, V, key-major from shared memory
 //    with the transpose bit; P as a hi + lo pair (p_hi = bf16(p), p_lo =
-//    bf16(p - p_hi)), two products into one f32 accumulator (D / 2 a
-//    thread), the row sum from the f32 P (a single bf16 P fails the
+//    bf16(p - p_hi)), two products into one f32 accumulator (DP / 2 a
+//    thread; O's columns past D are V's zeros times P, never rescaled and
+//    never stored), the row sum from the f32 P (a single bf16 P fails the
 //    reference's 2e-5 + 2 bf16 steps bound: kernels/ref.py
 //    chunked_prefill_attention_split_p_ref).  Each product is committed
 //    and waited for before its registers are read or its stage released.
@@ -96,14 +109,15 @@ constexpr int kWgThreads = 128 * (kWgConsumers + 1);
 
 template <int D>
 struct WgLayout {                    // byte offsets from a 1024-B aligned base
+  static constexpr int kDP = (D + 63) / 64 * 64;   // columns a row holds
   static constexpr int kQBlock = 64 * 128;         // 64 rows x 64 columns
   static constexpr int kKVBlock = kWgBN * 128;     // kWgBN rows x 64 columns
-  static constexpr int kTile = kWgBN * D * 2;      // one K or V tile
+  static constexpr int kTile = kWgBN * kDP * 2;    // one K or V tile
   static constexpr int kK = 0;
   static constexpr int kV = kK + kWgStages * kTile;
   static constexpr int kQ = kV + kWgStages * kTile;
-  static constexpr int kBar = kQ + kWgBM * D * 2;  // full K, full V, empty K,
-  static constexpr int kBytes = kBar + 4 * kWgStages * 8 + 1024;  // empty V
+  static constexpr int kBar = kQ + kWgBM * kDP * 2;  // full K, full V,
+  static constexpr int kBytes = kBar + 4 * kWgStages * 8 + 1024;  // empty K, V
 };
 
 __device__ __forceinline__ float ex2_ftz(float x) {
@@ -302,10 +316,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       const int* __restrict__ lengths,
                       __nv_bfloat16* __restrict__ out, int Sq, int Skv, int Hq,
                       int Hkv, int window, float softcap, float scale) {
-  static_assert(D == 64 || D == 128 || D == 256,
-                "one wgmma m64nDk16 product covers O's columns");
+  static_assert(D % 16 == 0 && D <= 256,
+                "k-steps of 16 columns; one wgmma m64nDPk16 product covers O");
   using L = WgLayout<D>;
-  constexpr int CB = D / 64;     // 128-byte column blocks of a row
+  constexpr int DP = L::kDP;
+  constexpr int CB = DP / 64;    // 128-byte column blocks of a row
   constexpr int NT = kWgBN / 8;  // 8-key n-blocks of S
   constexpr int KS = D / 16;     // k-steps of Q K^T
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -373,7 +388,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               lane = tid & 31;
     // This warpgroup's Q rows, packed, zero past P, swizzled as TMA would:
     // 16-byte chunk u of row r at block u / 8, chunk (u % 8) ^ (r % 8).
-    unsigned char* sQ = smem + L::kQ + wg * (64 * D * 2);
+    unsigned char* sQ = smem + L::kQ + wg * (64 * DP * 2);
     for (int c = wtid; c < 64 * (D / 8); c += 128) {
       const int r = c / (D / 8), u = c % (D / 8), p = p0 + wg * 64 + r;
       const bool ok = p < P;
@@ -403,9 +418,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const float qk_scale = kCap ? scale / softcap : scale * kLog2e;
     const float cap_log2e = softcap * kLog2e;
 
-    float o[D / 2];    // element 4 j + e: n-block j, as an S element e
+    float o[DP / 2];   // element 4 j + e: n-block j, as an S element e
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float sc[4 * NT];                          // S, then P, of one tile
     uint32_t ph[kWgBN / 16][4], pl[kWgBN / 16][4];   // P as A fragments
@@ -428,7 +443,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_commit();
     };
     // O += P V of tile it, issued; V's rows outside [k_lo, k_hi) (the
-    // first or last tile) are zeroed first, by both warpgroups together.
+    // first or last tile) are zeroed first, by both warpgroups together:
+    // the D / 8 chunks of such a row, each where the swizzle put it (a row
+    // of 64 columns holds its 8 chunks permuted, so at D = 16, 32 and 112
+    // the chunks 0 .. D / 8 - 1 of a block are not its first addresses).
     auto issue_pv = [&](int it) {
       const int s = it % kWgStages, kb = kb0 + it * kWgBN;
       unsigned char* sV = smem + L::kV + s * L::kTile;
@@ -438,7 +456,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const int r = c % kWgBN, u = c / kWgBN, kp = kb + r;
           if (kp < k_lo || kp >= k_hi)
             *reinterpret_cast<uint4*>(sV + (u >> 3) * L::kKVBlock + r * 128 +
-                                      (u & 7) * 16) = make_uint4(0, 0, 0, 0);
+                                      (((u & 7) ^ (r & 7)) << 4)) =
+                make_uint4(0, 0, 0, 0);
         }
         fence_proxy_async();
         named_bar_sync(3, 128 * kWgConsumers);
@@ -508,8 +527,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       else
         softmax(it, alpha, std::true_type{});
     };
-    // O's rows times alpha (a warp none of whose rows' max moved skips
-    // it: x 1 is exact).
+    // O's rows times alpha, the D columns that are stored (a warp none of
+    // whose rows' max moved skips it: x 1 is exact).
     auto rescale = [&](const float (&alpha)[2]) {
       if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
@@ -615,7 +634,8 @@ EncodeTiledFn encode_tiled() {
 }
 
 // K or V, (B, Skv, Hkv, D) bf16, as a 4-D map, innermost first: (D, Hkv,
-// Skv, B); a box is 64 columns (128 B) of kWgBN rows of one head.
+// Skv, B); a box is 64 columns (128 B) of kWgBN rows of one head, zero
+// where it reaches past D or Skv (FLOAT_OOB_FILL_NONE).
 bool kv_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, int B,
             int Skv, int Hkv, int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,

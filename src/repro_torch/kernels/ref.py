@@ -77,8 +77,8 @@ def chunked_prefill_attention_ref(
 
 
 LOG2E = 1.4426950408889634
-#: keys a tile of both bf16 prefill kernels: csrc/chunked_prefill_attention.cu
-#: kBK (D = 16, 32, 112) and csrc/prefill_wg.cuh kWgBN (D = 64, 128, 256)
+#: keys a tile of the bf16 prefill kernel at every head dim:
+#: csrc/prefill_wg.cuh kWgBN
 PREFILL_TILE_KEYS = 64
 
 

@@ -828,7 +828,8 @@ def test_prefill_kernel_d256_nan_in_dead_keys(cuda, case, dtype):
 
 
 # ---------------------------------------------------------------------------
-# bf16 prefill at head dims 64 and 128 on prefill_wg_kernel (wgmma + TMA)
+# bf16 prefill at head dims 16 to 128 on prefill_wg_kernel (wgmma + TMA;
+# at 16, 32 and 112 rows padded to whole 64-column blocks by the TMA map)
 # ---------------------------------------------------------------------------
 
 WG_PREFILL = {
@@ -848,6 +849,15 @@ WG_PREFILL = {
                                      [20]),
     "row-without-visible-key-d64": (1, 40, 96, 8, 2, 64, 8, 50.0, [15],
                                     [20]),
+    "kimi-d112-prompt": (1, 512, 2048, 64, 8, 112, 0, 0.0, [0], [512]),
+    "kimi-d112-chunk-window-softcap": (1, 256, 2048, 64, 8, 112, 1024, 50.0,
+                                       [1536], [1700]),
+    "d112-ragged-chunks": (2, 96, 320, 16, 2, 112, 64, 0.0, [100, 0],
+                           [196, 60]),
+    "d32-mqa-window-softcap": (2, 120, 400, 8, 1, 32, 48, 30.0, [150, 0],
+                               [270, 100]),
+    "d16-ragged-chunks": (2, 96, 320, 16, 2, 16, 64, 0.0, [100, 0],
+                          [196, 60]),
 }
 
 
@@ -864,7 +874,7 @@ def _wg_inputs(cuda, case, seed):
 
 @pytest.mark.parametrize("case", list(WG_PREFILL))
 def test_prefill_kernel_wg_d64_d128(cuda, case):
-    """bf16 prefill at D = 64 and 128 runs prefill_wg_kernel: against the
+    """bf16 prefill at D = 16 to 128 runs prefill_wg_kernel: against the
     plain version and the plain version with the kernel's rounding (3e-2,
     and 2e-5 + 2 bf16 steps), two calls bit-equal, one launch a call."""
     q, k, v, o, n, args = _wg_inputs(cuda, case, seed=len(case))
@@ -883,11 +893,15 @@ def test_prefill_kernel_wg_d64_d128(cuda, case):
 
 @pytest.mark.parametrize("case", ["llama-last-chunk", "mqa-6-over-1",
                                   "window-softcap", "ragged-chunks",
-                                  "musicgen-d64-window-softcap"])
+                                  "musicgen-d64-window-softcap",
+                                  "kimi-d112-chunk-window-softcap",
+                                  "d112-ragged-chunks",
+                                  "d32-mqa-window-softcap",
+                                  "d16-ragged-chunks"])
 def test_prefill_kernel_wg_d64_d128_nan_in_dead_keys(cuda, case):
     """NaN in K and V at every key no row can see (behind every row's
     window, at and past lengths; in the first and the last tile a block
-    loads) changes no bit of the bf16 output at D = 64 and 128."""
+    loads) changes no bit of the bf16 output at D = 16 to 128."""
     q, k, v, o, n, args = _wg_inputs(cuda, case, seed=len(case) + 1)
     clean = kops.prefill_attention(q, k, v, o, n, **args)
     want = ref.chunked_prefill_attention_ref(q, k, v, o, n, **args)
@@ -994,8 +1008,9 @@ D112_PREFILL = {
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", list(D112_PREFILL))
 def test_prefill_kernel_d112(cuda, case, dtype):
-    """Both prefill paths at D = 112 (bf16: prefill_tc_kernel<112>, 14
-    output n-tiles; f32: prefill_f32_kernel<112>, 7 columns a thread) at
+    """Both prefill paths at D = 112 (bf16: prefill_wg_kernel<112>, rows
+    padded to 128 columns; f32: prefill_f32_kernel<112>, 7 columns a
+    thread) at
     Kimi K2's heads (64 / 8), with offsets, a window and softcap, ragged
     lengths, MQA and a row with no visible key: bf16 at 3e-2 and 2e-5 + 2
     bf16 steps of the plain version and of the plain version with the

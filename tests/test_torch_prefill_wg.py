@@ -3,7 +3,7 @@
 ``csrc/prefill_wg.cuh`` (wgmma, TMA, a warp-specialised producer) runs
 every bf16 prefill at D = 256: Gemma-2-9B's heads (16 / 8, G = 2) and
 Gemma-2B's (8 / 1, G = 8).  Its online softmax runs over tiles of
-``ref.PREFILL_TILE_KEYS`` keys, as the D <= 128 kernel's does, and P enters
+``ref.PREFILL_TILE_KEYS`` keys, as it does at D <= 128, and P enters
 P V as a bf16 hi + lo pair; ``ref.chunked_prefill_attention_split_p_ref``
 computes that on the CPU.  On bf16 inputs made from a seed with numpy it is
 held against the reference package's Pallas kernel in interpret mode
@@ -57,12 +57,15 @@ def _bound_share(out, want):
 
 def test_the_reference_tile_is_both_kernels():
     """The keys a tile of split_p_ref's online softmax: prefill_wg.cuh's
-    kWgBN (D = 256) and chunked_prefill_attention.cu's kBK (D <= 128)."""
-    for name, const in (("prefill_wg.cuh", "kWgBN"),
-                        ("chunked_prefill_attention.cu", "kBK")):
-        text = (CSRC / name).read_text()
-        got = re.search(rf"constexpr int {const} = (\d+);", text)
-        assert got and int(got.group(1)) == tref.PREFILL_TILE_KEYS, name
+    kWgBN, the tile of the bf16 prefill kernel at D = 256 and at D <= 128
+    alike; chunked_prefill_attention.cu includes that kernel and holds no
+    bf16 kernel (no tile) of its own."""
+    wg = (CSRC / "prefill_wg.cuh").read_text()
+    got = re.search(r"constexpr int kWgBN = (\d+);", wg)
+    assert got and int(got.group(1)) == tref.PREFILL_TILE_KEYS
+    cu = (CSRC / "chunked_prefill_attention.cu").read_text()
+    assert '#include "prefill_wg.cuh"' in cu
+    assert "bfloat16" not in cu
 
 
 @pytest.mark.parametrize("case", list(CASES))
